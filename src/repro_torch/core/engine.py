@@ -1,0 +1,382 @@
+"""ODMoEEngine — cacheless on-demand MoE decoding (the paper's system).
+
+The engine runs the full-precision model layer by layer as the main node
+does, while a quantized SEP shadow decodes in lockstep and supplies
+whole-token expert predictions.  Expert weights live in the host
+``ExpertStore``; each worker owns one device slot into which predicted
+experts are loaded just in time and from which they are evicted right
+after their layer computes (no cache).  Mispredictions trigger reloads,
+the paper's fallback path.  ``generate`` decodes one fixed batch end to
+end (the paper's single-stream experiment); ``prefill_request`` +
+``decode_batch`` are its steps.
+
+Correctness invariant: greedy tokens equal ``greedy_generate(...,
+transport=policy)`` on the same weights.  Decode-time expert compute
+reads only worker-slot contents, one ``grouped_topk_contrib`` call per
+wave on the wave's stacked slot weights, and the per-(row, rank)
+contributions reduce through the shared fixed-order ``combine_topk`` —
+the functions the reference dispatch calls.  Per-pair values do not
+depend on which experts share a call (see ``csrc/moe_ffn.cu``), so wave
+partitioning never changes a token.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md
+queue 1): speculative decoding, prefetch executors and residency,
+packed-resident slots, fleet profiles and faults, compute-vs-ship, and
+the per-pair ``loop`` wave oracle.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.moe_gemm import combine_topk, grouped_topk_contrib
+from repro_torch.models.api import prefill
+from repro_torch.models.blocks import block_decode
+from repro_torch.models.config import MOE_FF, NO_FF, ModelConfig
+from repro_torch.models.layers import apply_norm, embed
+from repro_torch.models.moe import route
+from repro_torch.models.transformer import (layer_params, logits_from_hidden,
+                                            tree_leaves, tree_map, tree_stack)
+from repro_torch.quant.quantize import shadow_nbytes
+from repro_torch.quant.transport import resolve_policy, transport_params
+
+from .align import AlignmentPolicy
+from .predictor import (FrequencyPredictor, GateExtrapolator, RandomPredictor,
+                        SEPShadow, moe_layer_indices, recall_counts)
+from .schedule import GroupSchedule
+from .store import ExpertStore, WorkerSlots
+
+
+@dataclass
+class LayerRecord:
+    layer: int
+    moe_index: int
+    group: int
+    predicted: Optional[np.ndarray]      # (B,k) or None
+    true: np.ndarray                     # (B,k)
+    correct: int                         # sum_b |pred_b ∩ true_b|
+    reloads: int
+    assignments: List[Tuple[int, int]]   # (expert, worker)
+    waves: List[List[Tuple[int, int]]]   # per-wave subsets of assignments
+    touched: Tuple[int, ...] = ()        # every worker that took a load
+    gates: Optional[np.ndarray] = None   # (B,k) gate weights
+
+
+@dataclass
+class TokenRecord:
+    index: int
+    aligned_token: bool
+    aligned_kv: bool
+    layers: List[LayerRecord] = field(default_factory=list)
+    seconds: float = 0.0                 # measured wall time of this step
+
+
+@dataclass
+class Trace:
+    records: List[TokenRecord] = field(default_factory=list)
+
+    def recall(self) -> Optional[float]:
+        """Overall recall, Eq. (3), over the layers that had a
+        prediction; ``None`` when nothing was predicted."""
+        num = den = 0
+        for tr in self.records:
+            for lr in tr.layers:
+                if lr.predicted is not None:
+                    num += lr.correct
+                    den += lr.true.size
+        return num / den if den else None
+
+    def recall_per_token(self) -> List[Optional[float]]:
+        """recall(n), Eq. (2); ``None`` for tokens with no prediction."""
+        out = []
+        for tr in self.records:
+            num = sum(lr.correct for lr in tr.layers if lr.predicted is not None)
+            den = sum(lr.true.size for lr in tr.layers if lr.predicted is not None)
+            out.append(num / den if den else None)
+        return out
+
+    def reload_fraction(self) -> float:
+        loads = reloads = 0
+        for tr in self.records:
+            for lr in tr.layers:
+                reloads += lr.reloads
+                loads += len(lr.assignments)
+        return reloads / loads if loads else 0.0
+
+
+def _not_ported(feature: str, item: str):
+    raise NotImplementedError(f"{feature} is not ported yet (ROADMAP.md "
+                              f"queue 1, {item})")
+
+
+class ODMoEEngine:
+    def __init__(self, cfg: ModelConfig, params, *, n_workers: int = 8,
+                 group_size: int = 0, predictor: str = "sep",
+                 shadow_scheme: str = "int8", lookahead: int = 4, seed: int = 0,
+                 transport=None, device="cuda", speculate: int = 1,
+                 prefetch=None, residency=None, packed_slots: bool = False,
+                 profiles=None, faults=None, compute_vs_ship=None,
+                 wave_compute: str = "grouped"):
+        if cfg.is_encoder_decoder:
+            raise ValueError("engine drives decoder-only models")
+        if speculate < 1:
+            raise ValueError("speculate must be >= 1")
+        if speculate > 1:
+            _not_ported("speculate > 1", "core/specdecode.py")
+        if prefetch is not None or residency is not None:
+            _not_ported("prefetch / residency", "core/prefetch.py")
+        if packed_slots:
+            _not_ported("packed_slots", "packed-resident path")
+        if profiles is not None or faults is not None:
+            _not_ported("fleet profiles / faults", "fleet/")
+        if compute_vs_ship is not None:
+            _not_ported("compute_vs_ship", "fleet/ and serve/")
+        if wave_compute != "grouped":
+            _not_ported(f"wave_compute={wave_compute!r}", "core/engine.py loop oracle")
+        self.device = resolve_device(device)
+        if params["embed"]["table"].device != self.device:
+            raise ValueError(f"params live on {params['embed']['table'].device}, "
+                             f"the engine runs on {self.device}")
+        self.cfg = cfg
+        # ``transport`` fixes each expert's wire precision.  Slots receive the
+        # store's round-tripped experts and prefill runs on the same
+        # round-tripped tree the reference decodes with, so tokens match
+        # greedy_generate(transport=...).
+        self.transport = resolve_policy(transport)
+        self.moe_layers = moe_layer_indices(cfg)
+        g = group_size or max(cfg.top_k, 1)
+        if n_workers % g:
+            n_workers = g * max(1, n_workers // g)
+        self.sched = GroupSchedule(n_workers, g)
+        self.store = ExpertStore(cfg, params, policy=self.transport)
+        self.params = (params if self.transport.trivial
+                       else transport_params(cfg, params, self.transport,
+                                             packed=self.store.get_packed))
+        self.slots = WorkerSlots(self.store, n_workers)
+        self._layer_params = [layer_params(cfg, self.params, li)
+                              for li in range(cfg.num_layers)]
+        self.shadow: Optional[SEPShadow] = None
+        self.fly: Optional[GateExtrapolator] = None
+        self.freq: Optional[FrequencyPredictor] = None
+        self.rand: Optional[RandomPredictor] = None
+        if predictor == "sep":
+            self.shadow = SEPShadow(cfg, params, shadow_scheme)
+        elif predictor in ("nextgate", "multigate"):
+            la = 1 if predictor == "nextgate" else lookahead
+            self.fly = GateExtrapolator(cfg, self.store.router_weights(params), la)
+        elif predictor == "freq":
+            self.freq = FrequencyPredictor(cfg)
+        elif predictor == "random":
+            self.rand = RandomPredictor(cfg, seed)
+        elif predictor != "none":
+            raise ValueError(f"unknown predictor {predictor!r}")
+
+    # -------------------------------------------------------------- caches
+    def _unstack(self, caches):
+        pattern, _ = self.cfg.pattern()
+        return [tree_map(lambda a: a[li // len(pattern)], caches[li % len(pattern)])
+                for li in range(self.cfg.num_layers)]
+
+    def _stack(self, cache_list):
+        pattern, reps = self.cfg.pattern()
+        return tuple(tree_stack([cache_list[r * len(pattern) + pos] for r in range(reps)])
+                     for pos in range(len(pattern)))
+
+    # ----------------------------------------------------------- requests
+    def prefill_request(self, batch, max_cache_len: int):
+        """Prefill on the main node (the full model, as the reference's
+        engine does).  Returns ``(first_token (B,), cache_list, pos (B,))``."""
+        logits, state = prefill(self.cfg, self.params, batch, max_cache_len)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        return token, self._unstack(state["caches"]), state["pos"]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------ generate
+    @torch.no_grad()
+    def generate(self, batch, num_tokens: int,
+                 policy: AlignmentPolicy = AlignmentPolicy(1, 1)):
+        """End-to-end greedy generation, one token per step.
+
+        The KV cache is sized like ``greedy_generate``'s (prompt +
+        tokens), so engine and reference attend over identical shapes and
+        no reduction can change order between them."""
+        batch = {"tokens": batch["tokens"].to(self.device)}
+        max_cache_len = batch["tokens"].shape[1] + num_tokens
+        main_token, cache_list, pos = self.prefill_request(batch, max_cache_len)
+        if self.shadow is not None:
+            self.shadow.reset(batch, max_cache_len)
+        tokens_out = [main_token]
+        trace = Trace()
+        for n in range(1, num_tokens):
+            t0 = time.perf_counter()
+            preds: Dict[int, np.ndarray] = {}
+            at = ak = False
+            if self.shadow is not None:
+                at = policy.align_token_at(n)
+                ak = policy.align_kv_at(n)
+                if ak:
+                    self.shadow.align_kv({"caches": self._stack(cache_list),
+                                          "pos": pos})
+                preds = self.shadow.step(main_token if at else self.shadow.token)
+            rec = TokenRecord(index=n, aligned_token=at, aligned_kv=ak)
+            main_token, cache_list, pos = self.decode_batch(
+                main_token, cache_list, pos, preds, n, rec)
+            self._sync()
+            rec.seconds = time.perf_counter() - t0
+            tokens_out.append(main_token)
+            trace.records.append(rec)
+        return torch.stack(tokens_out, dim=1), trace
+
+    # ---------------------------------------------------------- one token
+    @torch.no_grad()
+    def decode_batch(self, token, cache_list, pos, preds, step_idx,
+                     rec: TokenRecord):
+        """One decode iteration.  ``preds`` maps layer -> (B,k) predicted
+        experts for this iteration.  Non-MoE layers and each MoE layer's
+        mixer + router run on the main node; expert FFNs run from worker
+        slots in ``_serve_and_compute``."""
+        cfg = self.cfg
+        x = embed(token[:, None], self.params["embed"])
+        pending: Dict[int, np.ndarray] = dict(preds)
+        moe_i = -1
+        for li, kinds in enumerate(cfg.layer_kinds()):
+            lp = self._layer_params[li]
+            if kinds[1] != MOE_FF:
+                x, cache_list[li], _ = block_decode(cfg, lp, kinds, x,
+                                                    cache_list[li], pos)
+                continue
+            moe_i += 1
+            x, cache_list[li], _ = block_decode(cfg, lp, (kinds[0], NO_FF), x,
+                                                cache_list[li], pos)
+            h = apply_norm(cfg, x, lp["norm2"])[:, 0]          # router input
+            topk_idx, topk_gate = route(cfg, lp["ff"], h)
+            x = self._moe_bookkeeping(step_idx, li, moe_i, pending,
+                                      topk_idx.cpu().numpy(), h, topk_gate, x, rec)
+        logits = logits_from_hidden(cfg, self.params, x)[:, 0]
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache_list, pos + 1
+
+    def _moe_bookkeeping(self, step_idx, li, moe_i, pending, true, h,
+                         topk_gate, x, rec: TokenRecord):
+        """On-the-fly predictors, serve + compute, the trace record and
+        the cacheless eviction of every worker touched by this layer."""
+        b = true.shape[0]
+        if self.fly is not None:
+            pending.update(self.fly.predict_from(li, h))
+        if self.freq is not None:
+            pending[li] = self.freq.predict(li, b)
+        if self.rand is not None:
+            pending[li] = self.rand.predict(li, b)
+        pred = pending.get(li)
+        lr, y = self._serve_and_compute(step_idx, li, moe_i, pred, true, h,
+                                        topk_gate)
+        rec.layers.append(lr)
+        if self.freq is not None:
+            self.freq.observe(li, true)
+        x = x + y[:, None].to(x.dtype)
+        used = set(lr.touched)
+        used.update(w for _, w in lr.assignments)
+        used.update(self.sched.workers_of_group(lr.group))
+        for w in sorted(used):
+            self.slots.evict(w)
+        return x
+
+    # ------------------------------------------------------ serve+compute
+    def _serve_and_compute(self, step_idx, layer, moe_i, pred, true, h,
+                           gates) -> Tuple[LayerRecord, torch.Tensor]:
+        """Load the routed experts and compute their FFNs from worker
+        slots, in waves when the batch needs more unique experts than the
+        fleet holds at once (each wave assigns distinct workers)."""
+        group = self.sched.group_of(moe_i)
+        touched: set = set()
+        # 1) predicted experts load ahead of the gate; overflow beyond the
+        # fleet's slots falls through to the reload path
+        if pred is not None:
+            pred_experts = list(dict.fromkeys(int(e) for e in pred.reshape(-1)))
+            for e, w in self.sched.place(moe_i, pred_experts):
+                self.slots.load(step_idx, layer, e, w, predicted=True)
+                touched.add(w)
+        # 2) the gate result is ground truth: reload anything missing
+        order = self.sched.serving_order(moe_i)
+        needed = list(dict.fromkeys(int(e) for e in true.reshape(-1)))
+        reloads = 0
+        assignments: List[Tuple[int, int]] = []
+        waves: List[List[Tuple[int, int]]] = []
+        contrib = None                                    # (B, k, d) fp32
+        remaining = needed
+        while remaining:
+            wave: Dict[int, int] = {}
+            claimed: set = set()
+            for e in remaining:                           # correct predictions
+                w = self.slots.worker_with(layer, e)
+                if w is not None and w not in claimed:
+                    wave[e] = w
+                    claimed.add(w)
+            free = [w for w in order if w not in claimed]
+            if not wave and not free:
+                raise RuntimeError(f"no workers left to serve layer {layer}")
+            for e in remaining:
+                if e in wave or self.slots.worker_with(layer, e) is not None:
+                    continue
+                if not free:
+                    break                                 # overflow -> next wave
+                w = free.pop(0)
+                self.slots.load(step_idx, layer, e, w, predicted=False)
+                touched.add(w)
+                reloads += 1
+                wave[e] = w
+            contrib = self._compute_wave(layer, h, true, gates, wave, contrib)
+            done = [(e, wave[e]) for e in remaining if e in wave]
+            assignments.extend(done)
+            waves.append(done)
+            remaining = [e for e in remaining if e not in wave]
+        y = combine_topk(contrib)
+        lr = LayerRecord(layer=layer, moe_index=moe_i, group=group,
+                         predicted=pred, true=true,
+                         correct=recall_counts(pred, true) if pred is not None else 0,
+                         reloads=reloads, assignments=assignments, waves=waves,
+                         touched=tuple(sorted(touched)),
+                         gates=gates.cpu().numpy())
+        return lr, y
+
+    def _compute_wave(self, layer, h, true, gates, wave: Dict[int, int], contrib):
+        """One grouped-FFN call on the wave's stacked slot weights: every
+        (row, rank) pair routed to a wave expert maps onto the stacked
+        axis, the rest are masked to exact zeros, so summing waves is
+        order-free."""
+        experts, stacked = self.slots.gather_stack(layer, wave)
+        match = true[..., None] == np.asarray(experts)      # (B, k, E_wave)
+        slot_map = np.where(match.any(-1), match.argmax(-1), -1)
+        wc = grouped_topk_contrib(h, stacked["w_gate"], stacked["w_up"],
+                                  stacked["w_down"],
+                                  torch.as_tensor(slot_map, device=h.device), gates)
+        return wc if contrib is None else contrib + wc
+
+    # ------------------------------------------------------------- memory
+    def memory_report(self) -> dict:
+        """Bytes by node type — the paper's Table 2 part (ii) quantities."""
+        total = sum(t.numel() * t.element_size() for t in tree_leaves(self.params))
+        expert_total = (len(self.moe_layers) * self.cfg.num_experts
+                        * self.store.expert_bytes)
+        main = total - expert_total
+        shadow = (shadow_nbytes(self.shadow.params, self.shadow.scheme)
+                  if self.shadow is not None else 0)
+        per_worker = self.slots.device_bytes_per_worker()
+        transport_max = max((self.store.packed_bytes(li, e) for li in self.moe_layers
+                             for e in range(self.cfg.num_experts)), default=0)
+        return {
+            "main_node_bytes": main,
+            "per_worker_bytes": per_worker,
+            "n_workers": self.sched.n_workers,
+            "shadow_node_bytes": shadow,
+            "total_bytes": main + shadow + self.sched.n_workers * per_worker,
+            "fully_cached_bytes": total,
+            "expert_transport_bytes": transport_max,
+        }

@@ -1,0 +1,170 @@
+"""Grouped-query attention with a ring-buffer KV cache.
+
+  * ``attn_seq``    — full-sequence causal attention (prefill).
+  * ``attn_decode`` — single-token decode against the cache.
+
+KV cache layout (per layer): ``{"k","v": (B, W, n_kv, hd), "pos": (B, W)}``
+where ``W`` is ``sliding_window`` if set, else the max sequence length,
+and ``pos`` holds the absolute position stored in each slot (-1 = empty).
+Keys are stored post-RoPE.  Cache updates are out of place: a cache
+handed to another consumer (the SEP shadow's KV alignment adopts the
+main model's caches) is never written behind its back.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+SEQ_BUCKET_MIN = 8
+
+# Above this length the reference switches to its blockwise
+# online-softmax path, which the port does not have yet.
+BLOCKWISE_THRESHOLD = 2048
+
+
+def seq_bucket(n: int) -> int:
+    """Smallest power-of-two >= n (floored at ``SEQ_BUCKET_MIN``) — the
+    shared length-bucket grid of full-seq attention and prefill."""
+    b = SEQ_BUCKET_MIN
+    while b < n:
+        b *= 2
+    return b
+
+
+# --------------------------------------------------------------------- init
+def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(gen, (d, cfg.num_heads * hd), dtype, device=device),
+        "wk": dense_init(gen, (d, cfg.num_kv_heads * hd), dtype, device=device),
+        "wv": dense_init(gen, (d, cfg.num_kv_heads * hd), dtype, device=device),
+        "wo": dense_init(gen, (cfg.num_heads * hd, d), dtype, device=device),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.num_heads), ("bk", cfg.num_kv_heads),
+                        ("bv", cfg.num_kv_heads)):
+            p[name] = torch.zeros((n * hd,), dtype=dtype, device=device)
+    return p
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device) -> dict:
+    w = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+    hd = cfg.resolved_head_dim
+    shape = (batch, w, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, w), -1, dtype=torch.int32,
+                              device=device)}
+
+
+# ------------------------------------------------------------------ helpers
+def _project_qkv(cfg: ModelConfig, params, x):
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    return (q.reshape(b, t, cfg.num_heads, hd),
+            k.reshape(b, t, cfg.num_kv_heads, hd),
+            v.reshape(b, t, cfg.num_kv_heads, hd))
+
+
+def _gqa_scores(cfg: ModelConfig, q, k):
+    """q: (B,T,H,hd)  k: (B,S,K,hd)  ->  (B,K,G,T,S) with H = K*G."""
+    b, t, h, hd = q.shape
+    g = h // cfg.num_kv_heads
+    qg = q.reshape(b, t, cfg.num_kv_heads, g, hd)
+    scale = torch.tensor(float(hd), dtype=torch.float32).sqrt().to(q.dtype)
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k) / scale.to(q.device)
+    if cfg.logit_soft_cap:
+        s = cfg.logit_soft_cap * torch.tanh(s / cfg.logit_soft_cap)
+    return s
+
+
+def _gqa_out(cfg: ModelConfig, probs, v, params):
+    b, k, g, t, s = probs.shape
+    o = torch.einsum("bkgts,bskh->btkgh", probs, v)
+    return o.reshape(b, t, k * g * v.shape[-1]) @ params["wo"]
+
+
+# ---------------------------------------------------------------- full-seq
+def attn_seq(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
+             window: int = 0):
+    """Full-sequence attention (prefill).  The key axis is padded to its
+    pow2 bucket before the softmax, as in the reference, so a prompt and
+    its bucket-padded twin reduce over identical shapes."""
+    if x.shape[1] > BLOCKWISE_THRESHOLD:
+        raise NotImplementedError(
+            "sequences above 2048 tokens need the blockwise attention "
+            "path (ROADMAP.md queue 1: attn_seq_blockwise)")
+    q, k, v = _project_qkv(cfg, params, x)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    scores = _gqa_scores(cfg, q, k).float()
+    qi = positions[:, None, None, :, None]
+    kj = positions[:, None, None, None, :]
+    mask = torch.ones(scores.shape[-2:], dtype=torch.bool,
+                      device=x.device)[None, None, None]
+    if causal:
+        mask = mask & (kj <= qi)
+    if window:
+        mask = mask & (qi - kj < window)
+    scores = torch.where(mask, scores, NEG_INF)
+    s_len = scores.shape[-1]
+    s_pad = seq_bucket(s_len) - s_len
+    if s_pad:
+        scores = F.pad(scores, (0, s_pad), value=NEG_INF)
+        v = F.pad(v, (0, 0, 0, 0, 0, s_pad))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    return _gqa_out(cfg, probs, v, params)
+
+
+def seed_cache(cfg: ModelConfig, params, x, positions, max_len: int) -> dict:
+    """Build a KV cache from a processed prompt (prefill -> decode)."""
+    b, t, _ = x.shape
+    _, k, v = _project_qkv(cfg, params, x)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    cache = init_cache(cfg, b, max_len, x.dtype, x.device)
+    w = cache["k"].shape[1]
+    take = min(t, w)
+    slots = positions[:, -take:] % w
+    b_idx = torch.arange(b, device=x.device)[:, None]
+    cache["k"][b_idx, slots] = k[:, -take:]
+    cache["v"][b_idx, slots] = v[:, -take:]
+    cache["pos"][b_idx, slots] = positions[:, -take:].to(torch.int32)
+    return cache
+
+
+# ------------------------------------------------------------------- decode
+def attn_decode(cfg: ModelConfig, params, x, cache, pos) -> Tuple[torch.Tensor, dict]:
+    """One-token decode.  x: (B,1,d); pos: (B,) absolute position.
+    Writes slot ``pos % W`` of a copy of the cache and returns it."""
+    q, k, v = _project_qkv(cfg, params, x)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
+    w = cache["k"].shape[1]
+    slot = pos.long() % w
+    b_idx = torch.arange(x.shape[0], device=x.device)
+    cache = {name: t.clone() for name, t in cache.items()}
+    cache["k"][b_idx, slot] = k[:, 0]
+    cache["v"][b_idx, slot] = v[:, 0]
+    cache["pos"][b_idx, slot] = pos.to(torch.int32)
+    scores = _gqa_scores(cfg, q, cache["k"]).float()             # (B,K,G,1,W)
+    kp = cache["pos"][:, None, None, None, :]
+    p = pos[:, None, None, None, None]
+    valid = (kp >= 0) & (kp <= p)
+    if cfg.sliding_window:
+        valid = valid & (p - kp < w)
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    return _gqa_out(cfg, probs, cache["v"], params), cache

@@ -1,0 +1,78 @@
+"""Residual blocks: an attention mixer with a MoE or dense SwiGLU FFN.
+
+A block is described by ``kinds = (mixer_kind, ff_kind)`` from
+``ModelConfig.layer_kinds()``.  Mamba mixers wait (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import attention as attn_lib
+from .config import ATTN, DENSE_FF, MOE_FF, NO_FF, ModelConfig
+from .layers import apply_norm, dense_init, swiglu_mlp
+from .moe import init_moe, moe_grouped
+
+
+def _require_attention(kinds) -> None:
+    if kinds[0] != ATTN:
+        raise NotImplementedError(
+            f"{kinds[0]!r} mixers are not ported yet (ROADMAP.md queue 1: "
+            "Mamba)")
+
+
+# --------------------------------------------------------------------- init
+def init_block(gen, cfg: ModelConfig, kinds: Tuple[str, str], dtype,
+               device) -> dict:
+    _require_attention(kinds)
+    ones = lambda: {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    p = {"norm1": ones(), "mixer": attn_lib.init_attention(gen, cfg, dtype, device)}
+    ff = kinds[1]
+    if ff == MOE_FF:
+        p["norm2"] = ones()
+        p["ff"] = init_moe(gen, cfg, dtype, device)
+    elif ff == DENSE_FF:
+        d, f = cfg.d_model, cfg.d_ff
+        p["norm2"] = ones()
+        p["ff"] = {"w_gate": dense_init(gen, (d, f), dtype, device=device),
+                   "w_up": dense_init(gen, (d, f), dtype, device=device),
+                   "w_down": dense_init(gen, (f, d), dtype, device=device)}
+    return p
+
+
+# ------------------------------------------------------------------- apply
+def apply_ff(cfg: ModelConfig, params, kinds, x):
+    """x: (B, T, d) -> (x + ff(x), topk_idx (B, T, k) or None)."""
+    ff = kinds[1]
+    if ff == NO_FF:
+        return x, None
+    h = apply_norm(cfg, x, params["norm2"])
+    if ff == MOE_FF:
+        b, t, d = h.shape
+        out, topk_idx = moe_grouped(cfg, params["ff"], h.reshape(b * t, d))
+        return x + out.reshape(b, t, d), topk_idx.reshape(b, t, cfg.top_k)
+    return x + swiglu_mlp(h, params["ff"]), None
+
+
+def block_seq(cfg: ModelConfig, params, kinds, x, positions, *,
+              make_cache: bool = False, max_cache_len: int = 0):
+    """Full-sequence causal block.  Returns (x, cache-or-None)."""
+    _require_attention(kinds)
+    h = apply_norm(cfg, x, params["norm1"])
+    out = attn_lib.attn_seq(cfg, params["mixer"], h, positions, causal=True,
+                            window=cfg.sliding_window)
+    cache = (attn_lib.seed_cache(cfg, params["mixer"], h, positions,
+                                 max_cache_len) if make_cache else None)
+    x, _ = apply_ff(cfg, params, kinds, x + out)
+    return x, cache
+
+
+def block_decode(cfg: ModelConfig, params, kinds, x, cache, pos
+                 ) -> Tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
+    """One-token block.  x: (B,1,d).  Returns (x, new_cache, topk_idx)."""
+    _require_attention(kinds)
+    h = apply_norm(cfg, x, params["norm1"])
+    out, cache = attn_lib.attn_decode(cfg, params["mixer"], h, cache, pos)
+    x, topk_idx = apply_ff(cfg, params, kinds, x + out)
+    return x, cache, topk_idx

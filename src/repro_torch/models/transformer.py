@@ -1,0 +1,126 @@
+"""Decoder-only LM assembled from blocks.
+
+Layers are grouped into the smallest repeating pattern (period P) and
+its repeats (R = L / P); the parameters of each pattern position are
+stacked along a leading R axis, exactly as in ``repro.models.transformer``
+(where the model runs as ``lax.scan`` over R).  The port keeps that
+layout so parameters bridge leaf for leaf, and so leaf-wide operations
+(the SEP shadow's int8 scales, taken over every axis but the last of a
+stacked leaf) see the same tensors; it runs the layers as a Python loop
+over views of the stacked leaves.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .blocks import block_decode, block_seq, init_block
+from .config import MOE_FF, ModelConfig
+from .layers import apply_norm, dense_init, embed, unembed
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor leaf of a dict/tuple/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_stack(trees):
+    """Stack same-shaped trees leaf by leaf along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_stack([t[i] for t in trees])
+                            for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+# --------------------------------------------------------------------- init
+def init_lm(gen, cfg: ModelConfig, dtype, device) -> dict:
+    pattern, reps = cfg.pattern()
+    params = {
+        "embed": {"table": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                                      scale=1.0, device=device)},
+        "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                           device=device)},
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                          dtype, device=device)}
+    params["layers"] = tuple(
+        tree_stack([init_block(gen, cfg, kinds, dtype, device)
+                    for _ in range(reps)])
+        for kinds in pattern)
+    return params
+
+
+def layer_params(cfg: ModelConfig, params, layer_idx: int):
+    """Parameters of one layer: views into the stacked leaves."""
+    pattern, _ = cfg.pattern()
+    pos, rep = layer_idx % len(pattern), layer_idx // len(pattern)
+    return tree_map(lambda a: a[rep], params["layers"][pos])
+
+
+def logits_from_hidden(cfg: ModelConfig, params, x):
+    x = apply_norm(cfg, x, params["final_norm"])
+    if cfg.tie_embeddings:
+        return unembed(x, params["embed"])
+    return x @ params["head"]["w"]
+
+
+# ---------------------------------------------------------------- sequence
+def lm_seq(cfg: ModelConfig, params, tokens, *, make_cache: bool = False,
+           max_cache_len: int = 0):
+    """Full-sequence forward.  Returns (logits (B,T,V), caches), where
+    caches is a tuple per pattern position of KV dicts stacked over
+    repeats (or None without ``make_cache``)."""
+    pattern, reps = cfg.pattern()
+    x = embed(tokens, params["embed"])
+    b, t, _ = x.shape
+    positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    caches = [[] for _ in pattern]
+    for r in range(reps):
+        for i, kinds in enumerate(pattern):
+            lp = tree_map(lambda a: a[r], params["layers"][i])
+            x, cache = block_seq(cfg, lp, kinds, x, positions,
+                                 make_cache=make_cache, max_cache_len=max_cache_len)
+            caches[i].append(cache)
+    logits = logits_from_hidden(cfg, params, x)
+    return logits, (tuple(tree_stack(c) for c in caches) if make_cache else None)
+
+
+# ------------------------------------------------------------------ decode
+def lm_decode(cfg: ModelConfig, params, token, caches, pos
+              ) -> Tuple[torch.Tensor, tuple, dict]:
+    """One-token decode.  token: (B,) int; pos: (B,) absolute position.
+
+    Returns (logits (B,V), new_caches, aux) with ``aux["topk"]`` a tuple
+    per MoE pattern position of (R, B, 1, k) routing decisions."""
+    pattern, reps = cfg.pattern()
+    x = embed(token[:, None], params["embed"])
+    new_caches = [[] for _ in pattern]
+    topk = [[] for _ in pattern]
+    for r in range(reps):
+        for i, kinds in enumerate(pattern):
+            lp = tree_map(lambda a: a[r], params["layers"][i])
+            lc = tree_map(lambda a: a[r], caches[i])
+            x, c, idx = block_decode(cfg, lp, kinds, x, lc, pos)
+            new_caches[i].append(c)
+            topk[i].append(idx)
+    logits = logits_from_hidden(cfg, params, x)[:, 0]
+    aux = {"topk": tuple(torch.stack(topk[i]) for i, kinds in enumerate(pattern)
+                         if kinds[1] == MOE_FF)}
+    return logits, tuple(tree_stack(c) for c in new_caches), aux
