@@ -6,21 +6,34 @@
 Phases, each of which ends the run with a non-zero exit on failure:
 
 1. card    — require CUDA; print ``nvidia-smi`` name and power limit.
-2. build   — compile the hand-written grouped expert-FFN kernel
-             (``src/repro_torch/csrc/moe_ffn.cu``) with nvcc.
-3. kernel  — hold the kernel against its plain PyTorch version at the
+2. build   — compile both hand-written kernels with nvcc, in parallel:
+             the grouped expert FFN (``src/repro_torch/csrc/moe_ffn.cu``)
+             and its packed-weight twin (``moe_ffn_packed.cu``); print
+             ptxas's register and spill lines.
+3. kernel  — hold the grouped FFN against its plain PyTorch version at the
              decode path's shapes (D=4096, F=14336, bf16 weights,
              E in {1,2,8}, C in {1,2,16}), check that per-(row, expert)
              outputs are bitwise equal across E and C, and time the
              kernel, its bound, the plain version and a torch.bmm formula.
-4. small   — the port's model on the card against its plain CPU path on
+4. packed  — the packed kernel on fp16, int8 and nf4 parts at the same
+             shapes: bitwise equal to the grouped FFN on the dequantized
+             weights, within tolerance of its plain version, bitwise
+             equal across E and C; timed beside its bytes bound, its
+             plain version and a torch.bmm formula on the dequantized
+             weights.
+5. small   — the port's model on the card against its plain CPU path on
              a small fp32 MoE config: logits close, tokens equal.
-5. slice   — ``repro_torch.launch.serve.serve_single`` at Mixtral-8x7B
+6. slice   — ``repro_torch.launch.serve.serve_single`` at Mixtral-8x7B
              width (4 layers, no expert padding), SEP int8 shadow, fp32
              transport: engine tokens must equal the port's
              ``greedy_generate`` and the kernel must have launched on both
              sides.  Then each part of a decoded token (one expert load,
              the shadow step, a dense decode step) is timed alone.
+7. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
+             width in fp32 (2 layers), transport int8, nf4 and tiered in
+             turn: engine tokens equal ``greedy_generate`` under the same
+             policy, the packed kernel launched, and the per-worker bytes
+             are the packed payload of the largest resident shard.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed.  The script imports nothing of JAX or of the
@@ -66,14 +79,17 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch.kernels.moe_gemm import kernel
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.moe_gemm import kernel, packed
     t0 = time.perf_counter()
-    info = kernel.build()
-    print(f"[build] {info['path']} built in {info['seconds']:.2f} s "
-          f"(phase {time.perf_counter() - t0:.2f} s)", flush=True)
-    for line in info["report"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:        # one nvcc per source, together
+        infos = list(pool.map(lambda m: m.LIBRARY.build(), (kernel, packed)))
+    for info in infos:
+        print(f"[build] {info['path']} built in {info['seconds']:.2f} s", flush=True)
+        for line in info["report"].splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                print(f"[build] ptxas: {line.strip()}")
+    print(f"[build] phase {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -156,6 +172,105 @@ def phase_kernel() -> dict:
     moe_ffn_kernel.launches = 0         # comparison launches do not count
     del wg, wu, wd, outs
     torch.cuda.empty_cache()
+    return rows
+
+
+PACKED_SCHEMES = ("fp16", "int8", "nf4")
+
+
+def phase_packed_kernel() -> dict:
+    """The packed kernel against kernel 1 on the dequantized weights
+    (bitwise), its plain version (tolerance) and itself across E and C
+    (bitwise), then timed at the engine's wave shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_gemm import (moe_ffn_kernel, moe_ffn_packed_kernel,
+                                              moe_ffn_packed_ref)
+    from repro_torch.quant import dequantize_tiles, device_layout, get_codec
+    dev = torch.device("cuda")
+    names = ("w_gate", "w_up", "w_down")
+    shapes = {"w_gate": (D_MODEL, D_EXPERT), "w_up": (D_MODEL, D_EXPERT),
+              "w_down": (D_EXPERT, D_MODEL)}
+    x = torch.randn((16, D_MODEL), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    rows = {}
+    for scheme in PACKED_SCHEMES:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        parts = {}
+        for name in names:        # one expert at a time: pack on the card, keep the parts
+            per = []
+            for _ in range(8):
+                w = torch.randn(shapes[name], generator=gen, device=dev)
+                per.append(device_layout(get_codec(scheme).pack(w * shapes[name][0] ** -0.5)))
+                del w
+            parts[name] = tuple(torch.stack([p[j] for p in per]) for j in range(len(per[0])))
+            del per
+        full = [dequantize_tiles(scheme, parts[n]).contiguous() for n in names]
+
+        def sub(e):
+            return {n: tuple(p[:e] for p in ps) for n, ps in parts.items()}
+
+        outs, errs = {}, {}
+        for e in (1, 2, 8):
+            for c in (1, 2, 16):
+                xd = x[:c].expand(e, c, D_MODEL).contiguous()
+                k = moe_ffn_packed_kernel(xd, sub(e), scheme=scheme)
+                k1 = moe_ffn_kernel(xd, *(w[:e] for w in full))
+                p = moe_ffn_packed_ref(xd, sub(e), scheme=scheme)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(k).all()):
+                    fail(f"packed kernel output not finite ({scheme}, E={e}, C={c})")
+                if not torch.equal(k, k1):
+                    fail(f"packed kernel differs from moe_ffn on the dequantized weights "
+                         f"({scheme}, E={e}, C={c}): max|diff| "
+                         f"{float((k - k1).abs().max()):.3e}")
+                rel = float((k - p).abs().max() / p.abs().max())
+                errs[(e, c)] = float((k - p).abs().max())
+                print(f"[packed] {scheme} E={e} C={c:2d}: == moe_ffn on dequantized weights; "
+                      f"max|k-p| = {errs[(e, c)]:.3e}, max|k-p|/max|p| = {rel:.3e} "
+                      f"(tolerance {KERNEL_TOL:g})")
+                if rel > KERNEL_TOL:
+                    fail(f"packed kernel disagrees with its plain version ({scheme}, E={e}, "
+                         f"C={c})")
+                outs[(e, c)] = k
+        for (e, c), k in outs.items():
+            if not torch.equal(k, outs[(8, 16)][:e, :c]):
+                fail(f"packed per-(row, expert) outputs at E={e} C={c} differ from E=8 C=16 "
+                     f"({scheme})")
+        print(f"[packed] {scheme}: per-(row, expert) outputs bitwise equal across E in "
+              f"{{1,2,8}} and C in {{1,2,16}}")
+        del outs
+
+        def formula(xd, e):
+            hu = F.silu(torch.bmm(xd, full[0][:e])) * torch.bmm(xd, full[1][:e])
+            return torch.bmm(hu, full[2][:e])
+
+        for e, c in ((2, 1), (8, 1)):
+            xd = x[:c].expand(e, c, D_MODEL).contiguous()
+            pe = sub(e)
+            t_k = time_ms(lambda: moe_ffn_packed_kernel(xd, pe, scheme=scheme))
+            t_k1 = time_ms(lambda: moe_ffn_kernel(xd, *(w[:e] for w in full)))
+            t_p = time_ms(lambda: moe_ffn_packed_ref(xd, pe, scheme=scheme), iters=5)
+            t_l = time_ms(lambda: formula(xd, e))
+            nbytes = (2 * xd.numel() * 4 + sum(t.numel() * t.element_size()
+                                               for ps in pe.values() for t in ps)
+                      + (64 if scheme == "nf4" else 0))
+            ops = 2 * 3 * e * c * D_MODEL * D_EXPERT + (3 * e * D_MODEL * D_EXPERT
+                                                        if scheme != "fp16" else 0)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+            b_ms, b_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                                     else "operations")
+            rows[(scheme, e, c)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                        bound_by=b_by, max_abs_err=errs[(e, c)],
+                                        nbytes=nbytes, moe_ffn_fp32_ms=t_k1)
+            print(f"[packed] time {scheme} E={e} C={c}: kernel {t_k:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes), plain {t_p:.4f} ms, "
+                  f"torch.bmm fp32 formula on dequantized weights {t_l:.4f} ms, moe_ffn on "
+                  f"the same fp32 weights {t_k1:.4f} ms", flush=True)
+        del parts, full
+        torch.cuda.empty_cache()
+    moe_ffn_packed_kernel.launches = 0     # comparison launches do not count
+    moe_ffn_kernel.launches = 0
     return rows
 
 
@@ -246,6 +361,100 @@ def phase_slice() -> dict:
     return {"launches": launches}
 
 
+# Per-worker bytes a packed-resident slot must hold at Mixtral-8x7B width:
+# the packed payload of one expert (codes and scales).
+PACKED_SLOT_BYTES = {"int8": 176_291_840, "nf4": 99_090_432}
+PACKED_SLICE_LAYERS = 2
+
+
+def phase_packed_slice() -> dict:
+    """``serve_single --packed-slots`` at Mixtral-8x7B width in fp32,
+    transport int8, nf4 and tiered in turn."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_packed_kernel
+    from repro_torch.launch.serve import build_parser, serve_single
+    from repro_torch.models import init_params
+    from repro_torch.quant.transport import transport_expert_bytes
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, num_layers=PACKED_SLICE_LAYERS, padded_experts=0,
+                              dtype="float32")
+    expert_gb = transport_expert_bytes(cfg, "fp32") * cfg.num_experts / 1e9
+    print(f"[packed-slice] {cfg.name}: d_model {cfg.d_model}, {cfg.num_experts} experts "
+          f"top-{cfg.top_k}, d_expert {cfg.d_expert}, {cfg.dtype}")
+    print(f"[packed-slice] cut: dtype {full.dtype} -> float32: a packed-resident slot "
+          f"needs an fp32 deployment (the kernel dequantizes to fp32; a bf16 expert falls "
+          f"back to a full-width slot, as in the JAX package)")
+    print(f"[packed-slice] cut: num_layers {full.num_layers} -> {cfg.num_layers}: one "
+          f"layer's 8 fp32 experts are {expert_gb:.2f} GB and serve_single holds about 4 "
+          f"copies (parameters, the engine's and the reference's round-tripped trees, the "
+          f"shadow's), so 2 layers need ~{8 * expert_gb + 2:.0f} GB and 3 ~"
+          f"{12 * expert_gb + 2:.0f} GB of the card's 80 GB")
+    print(f"[packed-slice] cut: padded_experts {full.padded_experts} -> 0 (as in the slice "
+          f"phase)")
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[packed-slice] random fp32 parameters from seed 0: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card", flush=True)
+    out = {"launches": 0, "runs": {}}
+    for precision in ("int8", "nf4", "tiered"):
+        args = build_parser().parse_args(
+            ["--prompt-len", "16", "--tokens", "8", "--predictor", "sep", "--shadow", "int8",
+             "--transport-precision", precision, "--workers", "8", "--seed", "0",
+             "--packed-slots"])
+        torch.cuda.reset_peak_memory_stats()
+        moe_ffn_kernel.launches = 0
+        moe_ffn_packed_kernel.launches = 0
+        t0 = time.perf_counter()
+        res = serve_single(cfg, params, args)
+        launches = moe_ffn_packed_kernel.launches
+        print(f"[packed-slice] {precision}: serve_single took {time.perf_counter() - t0:.1f} s")
+        toks, eng = res["tokens"], res["engine"]
+        if tuple(toks.shape) != (1, args.tokens):
+            fail(f"engine tokens have shape {tuple(toks.shape)}")
+        if not torch.equal(toks.cpu(), res["reference"].cpu()):
+            fail(f"packed engine tokens differ from greedy_generate ({precision})")
+        if res["packed_launches_engine"] <= 0:
+            fail(f"the packed engine did not launch the packed kernel ({precision})")
+        mem = eng.memory_report()
+        want = PACKED_SLOT_BYTES.get(precision)
+        slot_max = max(eng.store.resident_nbytes(li, e) for li in eng.moe_layers
+                       for e in range(cfg.num_experts))
+        if mem["per_worker_bytes"] != (want if want is not None else slot_max):
+            fail(f"per_worker_bytes {mem['per_worker_bytes']} is not the packed payload "
+                 f"{want if want is not None else slot_max} ({precision})")
+        steps = res["step_seconds"]
+        tpot = statistics.median(steps) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[packed-slice] {precision} [{eng.transport.describe()}]: tokens "
+              f"{toks.cpu().tolist()[0]} == greedy_generate: True; packed kernel launches "
+              f"{launches} (engine {res['packed_launches_engine']}, reference "
+              f"{res['packed_launches_reference']}), moe_ffn launches "
+              f"{moe_ffn_kernel.launches}")
+        print(f"[packed-slice] {precision}: TPOT median {tpot:.3f} ms over {len(steps)} tokens, "
+              f"loads {eng.slots.stats['loads']}, bytes_moved {eng.slots.bytes_moved}, "
+              f"per_worker_bytes {mem['per_worker_bytes']}, peak device memory {peak:.2f} GB, "
+              f"modelled (rtx3090-edge profile) {res['modelled_tok_s']:.3f} tok/s", flush=True)
+        layer = eng.moe_layers[0]
+        load_ms = _median_ms(lambda: eng.store.device_shard(layer, 0))
+        nbytes = eng.store.packed_bytes(layer, 0)
+        token = toks[:, -1].contiguous()
+        shadow_ms = _median_ms(lambda: eng.shadow.step_state(eng.shadow.state, token))
+        print(f"[packed-breakdown] {precision}: one packed-resident load (expert 0 of layer "
+              f"{layer}, {eng.store.scheme_of(layer, 0)}, {nbytes} bytes, pinned host -> "
+              f"card): {load_ms:.3f} ms = {nbytes / load_ms / 1e6:.2f} GB/s; loads per decoded "
+              f"token {eng.slots.stats['loads'] / max(len(steps), 1):.3f}; SEP shadow step "
+              f"({cfg.num_layers} fp32 layers, all {cfg.num_experts} experts per layer): "
+              f"{shadow_ms:.3f} ms",
+              flush=True)
+        out["launches"] += launches
+        out["runs"][precision] = dict(tpot_ms=tpot, per_worker=mem["per_worker_bytes"])
+        del res, eng, toks
+        torch.cuda.empty_cache()
+    return out
+
+
 def _median_ms(fn, reps: int = 5) -> float:
     import statistics
     import torch
@@ -294,9 +503,12 @@ def main():
     import torch
     phase_build()
     rows = phase_kernel()
+    prows = phase_packed_kernel()
     phase_small()
     moe = phase_slice()
-    row = rows[(2, 1)]
+    torch.cuda.empty_cache()
+    packed = phase_packed_slice()
+    row, prow = rows[(2, 1)], prows[("int8", 2, 1)]
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",
@@ -305,6 +517,17 @@ def main():
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} bf16 weights (engine wave)",
+    }, {
+        "name": "moe_ffn_packed", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_ffn_packed.cu",
+        "replaces": "src/repro/kernels/moe_gemm/packed.py:147",
+        "launches": packed["launches"], "max_abs_err": prow["max_abs_err"],
+        "ms": prow["ms"], "plain_ms": prow["plain_ms"], "bound_ms": prow["bound_ms"],
+        "bound_by": prow["bound_by"], "library_ms": None,
+        "yardstick_ms": prow["library_ms"],
+        "yardstick": "torch.bmm fp32 formula on the dequantized weights (no PyTorch call "
+                     "dequantizes inside its product)",
+        "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} int8 codes + scales (engine wave)",
     }]
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,13 +16,16 @@ reads only worker-slot contents, one ``grouped_topk_contrib`` call per
 wave on the wave's stacked slot weights, and the per-(row, rank)
 contributions reduce through the shared fixed-order ``combine_topk`` —
 the functions the reference dispatch calls.  Per-pair values do not
-depend on which experts share a call (see ``csrc/moe_ffn.cu``), so wave
-partitioning never changes a token.
+depend on which experts share a call (see ``csrc/moe_ffn_common.cuh``),
+so wave partitioning never changes a token.  With ``packed_slots=True``
+the slots keep wire-format codes and scales and each wave runs one
+``grouped_topk_contrib_packed`` call per resident scheme; in-register
+dequantization is exact, so the tokens are the same.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md
 queue 1): speculative decoding, prefetch executors and residency,
-packed-resident slots, fleet profiles and faults, compute-vs-ship, and
-the per-pair ``loop`` wave oracle.
+fleet profiles and faults, compute-vs-ship, and the per-pair ``loop``
+wave oracle.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.moe_gemm import combine_topk, grouped_topk_contrib
+from repro_torch.kernels.moe_gemm import (combine_topk, grouped_topk_contrib,
+                                          grouped_topk_contrib_packed)
 from repro_torch.models.api import prefill
 from repro_torch.models.blocks import block_decode
 from repro_torch.models.config import MOE_FF, NO_FF, ModelConfig
@@ -126,12 +130,13 @@ class ODMoEEngine:
             raise ValueError("engine drives decoder-only models")
         if speculate < 1:
             raise ValueError("speculate must be >= 1")
+        if packed_slots and wave_compute != "grouped":
+            # the loop oracle reads full-width slot dicts
+            raise ValueError("packed_slots requires the grouped wave path")
         if speculate > 1:
             _not_ported("speculate > 1", "core/specdecode.py")
         if prefetch is not None or residency is not None:
             _not_ported("prefetch / residency", "core/prefetch.py")
-        if packed_slots:
-            _not_ported("packed_slots", "packed-resident path")
         if profiles is not None or faults is not None:
             _not_ported("fleet profiles / faults", "fleet/")
         if compute_vs_ship is not None:
@@ -142,6 +147,9 @@ class ODMoEEngine:
         if params["embed"]["table"].device != self.device:
             raise ValueError(f"params live on {params['embed']['table'].device}, "
                              f"the engine runs on {self.device}")
+        # True: slots keep the wire-format codes and scales and the packed
+        # kernel dequantizes in registers (same bits, fewer slot bytes)
+        self.packed_slots = packed_slots
         self.cfg = cfg
         # ``transport`` fixes each expert's wire precision.  Slots receive the
         # store's round-tripped experts and prefill runs on the same
@@ -157,7 +165,7 @@ class ODMoEEngine:
         self.params = (params if self.transport.trivial
                        else transport_params(cfg, params, self.transport,
                                              packed=self.store.get_packed))
-        self.slots = WorkerSlots(self.store, n_workers)
+        self.slots = WorkerSlots(self.store, n_workers, packed_resident=packed_slots)
         self._layer_params = [layer_params(cfg, self.params, li)
                               for li in range(cfg.num_layers)]
         self.shadow: Optional[SEPShadow] = None
@@ -350,14 +358,30 @@ class ODMoEEngine:
         """One grouped-FFN call on the wave's stacked slot weights: every
         (row, rank) pair routed to a wave expert maps onto the stacked
         axis, the rest are masked to exact zeros, so summing waves is
-        order-free."""
-        experts, stacked = self.slots.gather_stack(layer, wave)
+        order-free.  Packed-resident slots make one call per resident
+        scheme: pairs routed to another group's experts are masked, so the
+        split is more wave partitioning and changes no bits."""
+        if self.packed_slots:
+            _, groups = self.slots.gather_stack_packed(layer, wave)
+            wc = None
+            for scheme, eids, parts in groups:
+                gc = grouped_topk_contrib_packed(h, parts, self._slot_map(true, eids, h),
+                                                 gates, scheme=scheme)
+                wc = gc if wc is None else wc + gc
+        else:
+            experts, stacked = self.slots.gather_stack(layer, wave)
+            wc = grouped_topk_contrib(h, stacked["w_gate"], stacked["w_up"],
+                                      stacked["w_down"], self._slot_map(true, experts, h),
+                                      gates)
+        return wc if contrib is None else contrib + wc
+
+    @staticmethod
+    def _slot_map(true, experts, h) -> torch.Tensor:
+        """(B, k) index of each routed pair's expert in ``experts``, -1
+        where it is not one of them."""
         match = true[..., None] == np.asarray(experts)      # (B, k, E_wave)
         slot_map = np.where(match.any(-1), match.argmax(-1), -1)
-        wc = grouped_topk_contrib(h, stacked["w_gate"], stacked["w_up"],
-                                  stacked["w_down"],
-                                  torch.as_tensor(slot_map, device=h.device), gates)
-        return wc if contrib is None else contrib + wc
+        return torch.as_tensor(slot_map, device=h.device)
 
     # ------------------------------------------------------------- memory
     def memory_report(self) -> dict:
@@ -368,15 +392,18 @@ class ODMoEEngine:
         main = total - expert_total
         shadow = (shadow_nbytes(self.shadow.params, self.shadow.scheme)
                   if self.shadow is not None else 0)
-        per_worker = self.slots.device_bytes_per_worker()
+        # peak, not steady state: while a shard dequantizes on arrival its
+        # packed buffer and the full-width slot are both live
+        fleet_bytes = self.sched.n_workers * (self.slots.slot_unit_bytes()
+                                              + self.slots.transient_packed_bytes())
         transport_max = max((self.store.packed_bytes(li, e) for li in self.moe_layers
                              for e in range(self.cfg.num_experts)), default=0)
         return {
             "main_node_bytes": main,
-            "per_worker_bytes": per_worker,
+            "per_worker_bytes": self.slots.device_bytes_per_worker(),
             "n_workers": self.sched.n_workers,
             "shadow_node_bytes": shadow,
-            "total_bytes": main + shadow + self.sched.n_workers * per_worker,
+            "total_bytes": main + shadow + fleet_bytes,
             "fully_cached_bytes": total,
             "expert_transport_bytes": transport_max,
         }

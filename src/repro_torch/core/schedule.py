@@ -3,8 +3,9 @@
 Workers are split into ``n_workers / group_size`` groups.  MoE layer
 ``l`` (the i-th MoE layer in execution order) is served by group
 ``i mod n_groups``; inside a group the top-k routed experts map one to
-one onto the group's workers.  Plain Python, copied from
-``repro.core.schedule`` (the fleet-aware schedule waits).
+one onto the group's workers.  ``t_maxload`` is Eq. (1): the longest an
+expert load may take without stalling compute.  Plain Python, copied
+from ``repro.core.schedule`` (the fleet-aware schedule waits).
 """
 from __future__ import annotations
 
@@ -42,12 +43,33 @@ class GroupSchedule:
             order.extend(self.workers_of_group((group + step) % self.n_groups))
         return order
 
+    def active_workers_of_group(self, moe_index: int) -> List[int]:
+        """Workers of the layer's home group able to serve (all of them:
+        every worker is alive with one slot)."""
+        return self.workers_of_group(self.group_of(moe_index))
+
     def serving_order(self, moe_index: int) -> List[int]:
         """Worker preference order for this layer: home group, then spill."""
         return (self.workers_of_group(self.group_of(moe_index))
                 + self.spill_workers(moe_index))
 
+    def load_targets(self, moe_index: int) -> List[int]:
+        """Slot preference order for predicted loads (one slot per worker,
+        so ``serving_order``)."""
+        return self.serving_order(moe_index)
+
     def place(self, moe_index: int, experts: Sequence[int]) -> List[Tuple[int, int]]:
-        """Map predicted experts onto workers in ``serving_order``; any
+        """Map predicted experts onto workers in ``load_targets``; any
         overflow is dropped (the reload path picks it up)."""
-        return list(zip(experts, self.serving_order(moe_index)))
+        return list(zip(experts, self.load_targets(moe_index)))
+
+    def t_maxload(self, t_main: float, t_worker: float) -> float:
+        """Eq. (1): while a group computes layer l, the other ``G - 1``
+        groups load, so a group has ``G·t^M + (G−1)·t^W`` (G = n_groups)
+        for its next load."""
+        g = self.n_groups
+        return g * t_main + (g - 1) * t_worker
+
+    def io_bottlenecked(self, t_load: float, t_main: float, t_worker: float) -> bool:
+        """Paper §3.1 closing check: is the system I/O-bound?"""
+        return t_load > self.t_maxload(t_main, t_worker)

@@ -1,9 +1,10 @@
 """Public wrappers for the grouped expert FFN.
 
-``moe_ffn`` is the raw (E, C, D) -> (E, C, D) grouped GEMM: the CUDA
-kernel for tensors on the card, the plain PyTorch version for tensors
-on the host.  There is no fallback between them: a CUDA tensor goes
-through the kernel or the call raises.
+``moe_ffn`` is the raw (E, C, D) -> (E, C, D) grouped GEMM and
+``moe_ffn_packed`` its twin on wire-format weights: the CUDA kernel for
+tensors on the card, the plain PyTorch version for tensors on the host.
+There is no fallback between them: a CUDA tensor goes through the
+kernel or the call raises.
 
 ``grouped_topk_contrib`` / ``combine_topk`` are the port's one expert-FFN
 hot path: the OD-MoE engine's wave compute, the reference
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .kernel import moe_ffn_kernel
+from .packed import moe_ffn_packed_kernel, moe_ffn_packed_ref
 from .ref import moe_ffn_ref
 
 
@@ -27,6 +29,22 @@ def moe_ffn(xd, w_gate, w_up, w_down):
     if xd.device.type == "cpu":
         return moe_ffn_ref(xd, w_gate, w_up, w_down)
     raise ValueError(f"no grouped FFN for device {xd.device}")
+
+
+def moe_ffn_packed(xd, parts, *, scheme: str):
+    """Grouped expert FFN on stacked wire-format parts (``parts`` maps
+    w_gate/w_up/w_down to device-layout part tuples with a leading expert
+    axis): the in-register-dequant kernel on CUDA tensors, dequantize +
+    plain version on CPU tensors.  ``scheme == "fp32"`` parts are the
+    full-width weights and go to :func:`moe_ffn`
+    (``repro.kernels.moe_gemm.ops.moe_ffn_packed``)."""
+    if scheme == "fp32":
+        return moe_ffn(xd, parts["w_gate"][0], parts["w_up"][0], parts["w_down"][0])
+    if xd.device.type == "cuda":
+        return moe_ffn_packed_kernel(xd, parts, scheme=scheme)
+    if xd.device.type == "cpu":
+        return moe_ffn_packed_ref(xd, parts, scheme=scheme)
+    raise ValueError(f"no packed grouped FFN for device {xd.device}")
 
 
 def _pow2(n: int) -> int:
@@ -43,23 +61,53 @@ def _pad_expert_axis(w, ep: int):
     return torch.cat([w, w.new_zeros((ep - es,) + tuple(w.shape[1:]))])
 
 
+def _gather_gated(h, y, slot, gates):
+    """(Ep, N, d) expert outputs -> gate-weighted (N, k, d) contributions,
+    exact zeros where ``slot`` is -1."""
+    valid = slot >= 0
+    safe = torch.where(valid, slot, torch.zeros_like(slot)).long()
+    rows = torch.arange(slot.shape[0], device=h.device)[:, None]   # (N, 1)
+    picked = y[safe, rows]                                         # (N, k, d)
+    return torch.where(valid[..., None], gates.float()[..., None] * picked,
+                       torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _broadcast_rows(h, ep: int):
+    x32 = h.float()
+    return x32.unsqueeze(0).expand((ep,) + tuple(x32.shape)).contiguous()
+
+
 def _grouped_contrib(h, w_gate, w_up, w_down, slot, gates):
     """Body of :func:`grouped_topk_contrib` (rows already padded).
 
     The stacked-expert axis pads to its pow2 bucket here; padded
     experts are all-zero and never selected by ``slot``."""
-    x32 = h.float()
-    n = x32.shape[0]
     ep = _pow2(max(w_gate.shape[0], 1))
     w_gate, w_up, w_down = (_pad_expert_axis(w, ep) for w in (w_gate, w_up, w_down))
-    xd = x32.unsqueeze(0).expand((ep,) + tuple(x32.shape)).contiguous()
-    y = moe_ffn(xd, w_gate, w_up, w_down)              # (Ep, N, d) fp32
-    valid = slot >= 0
-    safe = torch.where(valid, slot, torch.zeros_like(slot)).long()
-    rows = torch.arange(n, device=h.device)[:, None]   # (N, 1)
-    picked = y[safe, rows]                             # (N, k, d)
-    return torch.where(valid[..., None], gates.float()[..., None] * picked,
-                       torch.zeros((), dtype=torch.float32, device=h.device))
+    y = moe_ffn(_broadcast_rows(h, ep), w_gate, w_up, w_down)    # (Ep, N, d) fp32
+    return _gather_gated(h, y, slot, gates)
+
+
+def _grouped_contrib_packed(h, parts, slot, gates, *, scheme: str):
+    """Packed twin of :func:`_grouped_contrib`: the same pad, gather, mask
+    and gate arithmetic around :func:`moe_ffn_packed`.  Zero-padded
+    experts dequantize to zero weights and are never selected."""
+    ep = _pow2(max(parts["w_gate"][0].shape[0], 1))
+    parts = {name: tuple(_pad_expert_axis(p, ep) for p in ps) for name, ps in parts.items()}
+    y = moe_ffn_packed(_broadcast_rows(h, ep), parts, scheme=scheme)
+    return _gather_gated(h, y, slot, gates)
+
+
+def _pad_rows(h, slot, gates):
+    """Pad the row axis to its pow2 bucket (h/slot/gates only; padded
+    rows are masked with slot -1)."""
+    n = slot.shape[0]
+    np_ = _pow2(max(n, 1))
+    if np_ != n:
+        h = F.pad(h, (0, 0, 0, np_ - n))
+        slot = F.pad(slot, (0, 0, 0, np_ - n), value=-1)
+        gates = F.pad(gates, (0, 0, 0, np_ - n))
+    return h, slot, gates
 
 
 def grouped_topk_contrib(h, w_gate, w_up, w_down, slot, gates):
@@ -77,13 +125,23 @@ def grouped_topk_contrib(h, w_gate, w_up, w_down, slot, gates):
     only); the expert axis pads inside ``_grouped_contrib``.
     """
     n = slot.shape[0]
-    np_ = _pow2(max(n, 1))
-    if np_ != n:
-        h = F.pad(h, (0, 0, 0, np_ - n))
-        slot = F.pad(slot, (0, 0, 0, np_ - n), value=-1)
-        gates = F.pad(gates, (0, 0, 0, np_ - n))
-    out = _grouped_contrib(h, w_gate, w_up, w_down, slot, gates)
-    return out[:n] if np_ != n else out
+    h, slot, gates = _pad_rows(h, slot, gates)
+    return _grouped_contrib(h, w_gate, w_up, w_down, slot, gates)[:n]
+
+
+def grouped_topk_contrib_packed(h, parts, slot, gates, *, scheme: str):
+    """:func:`grouped_topk_contrib` on stacked wire-format parts (what
+    ``WorkerSlots.gather_stack_packed`` gives): the same contract and row
+    bucketing, and the same per-(row, rank) bits, because in-register
+    dequantization is elementwise and exact.  ``scheme == "fp32"`` parts
+    are full-width weights and take the full-width path
+    (``repro.kernels.moe_gemm.ops.grouped_topk_contrib_packed``)."""
+    if scheme == "fp32":
+        return grouped_topk_contrib(h, parts["w_gate"][0], parts["w_up"][0],
+                                    parts["w_down"][0], slot, gates)
+    n = slot.shape[0]
+    h, slot, gates = _pad_rows(h, slot, gates)
+    return _grouped_contrib_packed(h, parts, slot, gates, scheme=scheme)[:n]
 
 
 def combine_topk(contrib):

@@ -88,6 +88,39 @@ def unpack_nf4_codes(packed, n_blocks: int):
     return torch.stack([hi, lo], dim=1).reshape(n_blocks, NF4_BLOCK)
 
 
+# ----------------------------------------- tile-aligned device layout
+def nf4_pair_unpack(codes):
+    """Device-layout nf4 bytes along the last axis: ``(..., m)`` packed
+    bytes -> ``(..., 2m)`` 4-bit codes, high nibble first (the bit order
+    of :func:`unpack_nf4_codes`).  Leading batch dims pass through
+    (``repro.quant.quantize.nf4_pair_unpack``)."""
+    hi = (codes >> 4) & 0xF
+    lo = codes & 0xF
+    return torch.stack([hi, lo], dim=-1).reshape(
+        tuple(codes.shape[:-1]) + (codes.shape[-1] * 2,))
+
+
+def dequantize_tiles(scheme: str, parts):
+    """Elementwise dequantization of tile-aligned device-layout parts
+    (``repro_torch.quant.transport.device_layout``), with any leading
+    batch dims (a stacked wave dequantizes in one call).  Per element it
+    is the fp32 arithmetic of the wire-side ``dequantize`` — int8
+    ``code * scale``, nf4 ``LUT[code] * block_absmax`` — on the same
+    pairs, so the result equals dequantize-on-arrival bit for bit
+    (``repro.quant.quantize.dequantize_tiles``)."""
+    if scheme == "fp32":
+        return parts[0]
+    if scheme == "fp16":
+        return parts[0].float()
+    if scheme == "int8":
+        return parts[0].float() * parts[1]
+    if scheme == "nf4":
+        codes = nf4_pair_unpack(parts[0]).long()
+        scales = torch.repeat_interleave(parts[1], NF4_BLOCK, dim=-1)
+        return NF4_LEVELS.to(codes.device)[codes] * scales
+    raise ValueError(f"unknown scheme {scheme!r}")
+
+
 # ------------------------------------------------------------- dispatch
 def quantize(w, scheme: str):
     if scheme == "fp16":

@@ -24,3 +24,27 @@ def prompt(cfg, seed: int, length: int = 12):
     """A numpy-seeded prompt (1, length) int32, fed to both packages."""
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, length)).astype(np.int32)
+
+
+def torch_trace(trace):
+    """A JAX engine ``Trace`` as the port's ``Trace``: the same records
+    (tokens, routing, predictions, gates, waves), as numpy."""
+    from repro_torch.core import LayerRecord, TokenRecord, Trace
+
+    def arr(a):
+        return None if a is None else np.asarray(a)
+
+    out = Trace()
+    for rec in trace.records:
+        tr = TokenRecord(index=rec.index, aligned_token=rec.aligned_token,
+                         aligned_kv=rec.aligned_kv)
+        for lr in rec.layers:
+            tr.layers.append(LayerRecord(
+                layer=lr.layer, moe_index=lr.moe_index, group=lr.group,
+                predicted=arr(lr.predicted), true=np.asarray(lr.true),
+                correct=lr.correct, reloads=lr.reloads,
+                assignments=list(lr.assignments),
+                waves=[list(w) for w in (lr.waves or [])],
+                touched=tuple(lr.touched), gates=arr(lr.gates)))
+        out.records.append(tr)
+    return out

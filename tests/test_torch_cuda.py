@@ -1,5 +1,7 @@
-"""Card-only tests of the port: the hand-written CUDA grouped FFN against
-its plain PyTorch version, its refusals, and the engine on the card.
+"""Card-only tests of the port: the hand-written CUDA grouped FFN and its
+packed-weight twin against their plain PyTorch versions and against each
+other, their refusals, and the engine on the card (full-width and
+packed-resident slots).
 
 They skip on a host without CUDA.  This file imports neither JAX nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -10,9 +12,12 @@ import pytest
 import torch
 
 from repro_torch.core import ODMoEEngine
-from repro_torch.kernels.moe_gemm import (grouped_topk_contrib, moe_ffn,
-                                          moe_ffn_kernel, moe_ffn_ref)
+from repro_torch.kernels.moe_gemm import (grouped_topk_contrib, grouped_topk_contrib_packed,
+                                          moe_ffn, moe_ffn_kernel, moe_ffn_packed,
+                                          moe_ffn_packed_kernel, moe_ffn_packed_ref,
+                                          moe_ffn_ref)
 from repro_torch.models import ModelConfig, greedy_generate, init_params
+from repro_torch.quant import TieredPolicy, dequantize_tiles, device_layout, get_codec
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +123,146 @@ def test_engine_on_the_card_equals_greedy(dev, predictor):
     toks, _ = eng.generate(batch, 8)
     assert moe_ffn_kernel.launches > before
     assert torch.equal(toks, greedy_generate(cfg, params, batch, 8))
+
+
+# ------------------------------------------------------ packed-weight kernel
+NAMES = ("w_gate", "w_up", "w_down")
+
+
+def _packed(dev, scheme, e, d, f, seed=0):
+    """Stacked device-layout parts of e random experts, packed on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    parts = {}
+    for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d))):
+        per = [device_layout(get_codec(scheme).pack(
+            torch.randn(shape, generator=g, device=dev) * shape[0] ** -0.5)) for _ in range(e)]
+        parts[name] = tuple(torch.stack([p[j] for p in per]) for j in range(len(per[0])))
+    return parts
+
+
+def _full(scheme, parts):
+    return [dequantize_tiles(scheme, parts[n]).contiguous() for n in NAMES]
+
+
+SHAPES = [(1, 1, 64, 128), (3, 5, 128, 320), (2, 9, 64, 576), (4, 16, 256, 640)]
+
+
+# nf4 needs 64-aligned widths (its refusal is tested below); fp16 and int8
+# also take widths that are not whole runs, read element by element
+CASES = ([(s, shape) for s in ("fp16", "int8", "nf4") for shape in SHAPES]
+         + [(s, shape) for s in ("fp16", "int8") for shape in ((2, 3, 40, 100), (1, 2, 33, 37))])
+
+
+@pytest.mark.parametrize("scheme,shape", CASES)
+def test_packed_kernel_bit_equals_kernel1_and_matches_plain(dev, scheme, shape):
+    """In-register dequantization is exact and the sums are kernel 1's:
+    the packed kernel equals kernel 1 on the dequantized weights bit for
+    bit, and its plain version within fp32 tolerance."""
+    e, c, d, f = shape
+    parts = _packed(dev, scheme, e, d, f, seed=e * 31 + c)
+    x = torch.randn((e, c, d), generator=torch.Generator(device=dev).manual_seed(c), device=dev)
+    got = moe_ffn_packed_kernel(x, parts, scheme=scheme)
+    want = moe_ffn_kernel(x, *_full(scheme, parts))
+    plain = moe_ffn_packed_ref(x, parts, scheme=scheme)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (e, c, d)
+    assert torch.equal(got, want)
+    assert float((got - plain).abs().max() / plain.abs().max()) <= REL_TOL
+
+
+@pytest.mark.parametrize("scheme", ["fp16", "int8", "nf4"])
+def test_packed_kernel_rows_invariant_across_experts_and_rows(dev, scheme):
+    parts = _packed(dev, scheme, 8, 128, 192, seed=5)
+    x = torch.randn((1, 16, 128), generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+    full = moe_ffn_packed_kernel(x.expand(8, 16, 128).contiguous(), parts, scheme=scheme)
+    for e in (1, 2, 3, 8):
+        sub = {n: tuple(p[:e] for p in ps) for n, ps in parts.items()}
+        for c in (1, 2, 5, 16):
+            got = moe_ffn_packed_kernel(x[:, :c].expand(e, c, 128).contiguous(), sub,
+                                        scheme=scheme)
+            assert torch.equal(got, full[:e, :c])
+
+
+@pytest.mark.parametrize("scheme", ["fp16", "int8", "nf4"])
+def test_packed_kernel_misaligned_codes_give_the_same_bits(dev, scheme):
+    """Codes that start off a 16-byte boundary take the element-by-element
+    loads, which feed the same values to the same sums."""
+    parts = _packed(dev, scheme, 2, 64, 128, seed=9)
+    x = torch.randn((2, 3, 64), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    moved = {n: (shifted(ps[0]),) + ps[1:] for n, ps in parts.items()}
+    assert moved["w_gate"][0].data_ptr() % 16 != 0
+    assert torch.equal(moe_ffn_packed_kernel(x, moved, scheme=scheme),
+                       moe_ffn_packed_kernel(x, parts, scheme=scheme))
+
+
+def test_packed_kernel_counts_launches_and_ops_route_to_it(dev):
+    parts = _packed(dev, "int8", 2, 64, 128)
+    x = torch.randn((2, 1, 64), device=dev)
+    before, before1 = moe_ffn_packed_kernel.launches, moe_ffn_kernel.launches
+    moe_ffn_packed(x, parts, scheme="int8")
+    grouped_topk_contrib_packed(x[0], parts, torch.tensor([[0, 1]], device=dev),
+                                torch.tensor([[0.5, 0.5]], device=dev), scheme="int8")
+    assert moe_ffn_packed_kernel.launches == before + 2
+    full = {n: (w,) for n, w in zip(NAMES, _full("int8", parts))}
+    moe_ffn_packed(x, full, scheme="fp32")      # full-width parts: kernel 1
+    assert moe_ffn_kernel.launches == before1 + 1
+    assert moe_ffn_packed_kernel.launches == before + 2
+
+
+def test_packed_kernel_refuses_bad_inputs(dev):
+    parts = _packed(dev, "nf4", 2, 64, 128)
+    x = torch.randn((2, 3, 64), device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        moe_ffn_packed_kernel(torch.randn((2, 3, 32), device=dev),
+                              {n: (ps[0][..., :16], ps[1][..., :1]) for n, ps in parts.items()},
+                              scheme="nf4")
+    with pytest.raises(ValueError, match="no packed kernel"):
+        moe_ffn_packed_kernel(x, parts, scheme="int4")
+    with pytest.raises(TypeError):
+        moe_ffn_packed_kernel(x.double(), parts, scheme="nf4")
+    with pytest.raises(TypeError):
+        moe_ffn_packed_kernel(x, {**parts, "w_up": (parts["w_up"][0].to(torch.int8),
+                                                    parts["w_up"][1])}, scheme="nf4")
+    with pytest.raises(ValueError):
+        moe_ffn_packed_kernel(x, {**parts, "w_down": parts["w_down"][:1]}, scheme="nf4")
+    with pytest.raises(ValueError):
+        moe_ffn_packed_kernel(x, {**parts, "w_gate": (parts["w_gate"][0][:1],
+                                                      parts["w_gate"][1][:1])}, scheme="nf4")
+    with pytest.raises(ValueError):
+        moe_ffn_packed_kernel(x, {**parts, "w_gate": (parts["w_gate"][0].transpose(1, 2)
+                                                      .contiguous().transpose(1, 2),
+                                                      parts["w_gate"][1])}, scheme="nf4")
+    with pytest.raises(ValueError):
+        moe_ffn_packed_kernel(x.cpu(), parts, scheme="nf4")
+    i8 = _packed(dev, "int8", 2, 64, 128)
+    with pytest.raises(TypeError):
+        moe_ffn_packed_kernel(x, {**i8, "w_gate": (i8["w_gate"][0], i8["w_gate"][1].half())},
+                              scheme="int8")
+
+
+@pytest.mark.parametrize("transport", ["int8", "nf4", "fp16", "tiered"])
+def test_packed_engine_on_the_card_equals_greedy(dev, transport):
+    cfg = ModelConfig(name="t-moe", family="moe", num_layers=3, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=0, d_expert=128,
+                      vocab_size=97, num_experts=8, top_k=2)
+    params = init_params(cfg, seed=3, device=dev)
+    if transport == "tiered":
+        transport = TieredPolicy(low_experts=[(li, e) for li in range(3) for e in range(0, 8, 2)])
+    batch = {"tokens": torch.randint(0, 97, (1, 12), generator=torch.Generator()
+                                     .manual_seed(4), dtype=torch.int32).to(dev)}
+    before = moe_ffn_packed_kernel.launches
+    eng = ODMoEEngine(cfg, params, predictor="sep", device=dev, transport=transport,
+                      packed_slots=True)
+    toks, _ = eng.generate(batch, 8)
+    assert moe_ffn_packed_kernel.launches > before
+    assert torch.equal(toks, greedy_generate(cfg, params, batch, 8, transport=transport))
+    assert eng.slots.transient_packed_bytes() == 0
+    assert eng.memory_report()["per_worker_bytes"] < eng.store.expert_bytes

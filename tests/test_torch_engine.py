@@ -137,7 +137,7 @@ def test_cacheless_after_generate(setup):
 
 @pytest.mark.parametrize("kw", [
     {"speculate": 2}, {"prefetch": "sync"}, {"residency": "lru"},
-    {"packed_slots": True}, {"faults": object()}, {"compute_vs_ship": True},
+    {"profiles": [object()] * 8}, {"faults": object()}, {"compute_vs_ship": True},
     {"wave_compute": "loop"}])
 def test_unported_engine_options_raise(setup, kw):
     _, _, tcfg, tparams, _ = setup
