@@ -6,10 +6,11 @@
 Phases, each of which ends the run with a non-zero exit on failure:
 
 1. card    — require CUDA; print ``nvidia-smi`` name and power limit.
-2. build   — compile both hand-written kernels with nvcc, in parallel:
-             the grouped expert FFN (``src/repro_torch/csrc/moe_ffn.cu``)
-             and its packed-weight twin (``moe_ffn_packed.cu``); print
-             ptxas's register and spill lines.
+2. build   — compile the three hand-written kernels with nvcc, in
+             parallel: the grouped expert FFN
+             (``src/repro_torch/csrc/moe_ffn.cu``), its packed-weight twin
+             (``moe_ffn_packed.cu``) and flash-decode attention
+             (``flash_decode.cu``); print ptxas's register and spill lines.
 3. kernel  — hold the grouped FFN against its plain PyTorch version at the
              decode path's shapes (D=4096, F=14336, bf16 weights,
              E in {1,2,8}, C in {1,2,16}), check that per-(row, expert)
@@ -21,15 +22,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
              equal across E and C; timed beside its bytes bound, its
              plain version and a torch.bmm formula on the dequantized
              weights.
-5. small   — the port's model on the card against its plain CPU path on
+5. flash   — the flash-decode kernel against its plain version at
+             Mixtral's attention shapes (K=8, G=4, Hd=128; bf16 and fp32;
+             B in {1,4,16}; W in {32, 4096, 32768}; unfilled slots, ring
+             wrap, window in {0, W/2}): within tolerance, each row bitwise
+             equal to its own B=1 launch, and bitwise equal when W grows by
+             two chunks of masked slots; timed beside its bytes bound, its
+             plain version and ``scaled_dot_product_attention``.
+6. small   — the port's model on the card against its plain CPU path on
              a small fp32 MoE config: logits close, tokens equal.
-6. slice   — ``repro_torch.launch.serve.serve_single`` at Mixtral-8x7B
+7. slice   — ``repro_torch.launch.serve.serve_single`` at Mixtral-8x7B
              width (4 layers, no expert padding), SEP int8 shadow, fp32
              transport: engine tokens must equal the port's
              ``greedy_generate`` and the kernel must have launched on both
              sides.  Then each part of a decoded token (one expert load,
              the shadow step, a dense decode step) is timed alone.
-7. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
+8. serve   — ``repro_torch.launch.serve.serve_traffic`` on the slice's
+             parameters: 8 burst requests (prompts 64-128, up to 8 new
+             tokens), max batch 4, overlap composition, a KV pool of 16-slot
+             pages at half the dense footprint of 4 windows.  Every
+             request's tokens must equal its solo ``greedy_generate``, the
+             mean batch must exceed 1, the pool must preempt and resume at
+             least once, and flash-decode and the expert kernel must have
+             launched on the serving and the reference side.
+9. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
              width in fp32 (2 layers), transport int8, nf4 and tiered in
              turn: engine tokens equal ``greedy_generate`` under the same
              policy, the packed kernel launched, and the per-worker bytes
@@ -53,6 +69,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
 D_MODEL, D_EXPERT = 4096, 14336
+N_KV, GROUP, HEAD_DIM = 8, 4, 128  # Mixtral-8x7B attention: 8 kv heads, 32 query heads
 KERNEL_TOL = 1e-4                 # max|k - p| / max|p|: fp32 sums in two orders
 
 
@@ -80,10 +97,11 @@ def phase_card():
 
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.flash_decode import kernel as flash
     from repro_torch.kernels.moe_gemm import kernel, packed
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:        # one nvcc per source, together
-        infos = list(pool.map(lambda m: m.LIBRARY.build(), (kernel, packed)))
+    with ThreadPoolExecutor(3) as pool:        # one nvcc per source, together
+        infos = list(pool.map(lambda m: m.LIBRARY.build(), (kernel, packed, flash)))
     for info in infos:
         print(f"[build] {info['path']} built in {info['seconds']:.2f} s", flush=True)
         for line in info["report"].splitlines():
@@ -274,6 +292,161 @@ def phase_packed_kernel() -> dict:
     return rows
 
 
+def median_ms(fn, iters: int = 25, warmup: int = 3, device_only: bool = True) -> float:
+    """Median time of single launches, CUDA events around each.  With
+    ``device_only`` a sleep kernel first holds the stream, so the whole call
+    is queued before the start event fires and the events see device time
+    alone; without it they also see the host's time to launch it."""
+    import statistics
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def flash_inputs(b, w, dtype, seed, fill=0.8):
+    """Ring-buffer caches at Mixtral's attention shapes: each row's position
+    is past the window for most rows (ring wrap); slot s holds the latest
+    position congruent to s, some slots are unfilled (kpos = -1), and the
+    slot of ``pos`` itself is always valid, as on the decode path."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, N_KV, GROUP, HEAD_DIM), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, w, N_KV, HEAD_DIM), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, w, N_KV, HEAD_DIM), generator=gen, device=dev).to(dtype)
+    pos = torch.randint(w // 2, 3 * w, (b,), generator=gen, device=dev, dtype=torch.int32)
+    slots = torch.arange(w, device=dev)
+    kpos = pos[:, None] - (pos[:, None] - slots[None]) % w
+    kpos = torch.where(kpos < 0, -1, kpos)
+    drop = torch.rand((b, w), generator=gen, device=dev) > fill
+    kpos = torch.where(drop, -1, kpos).to(torch.int32)
+    kpos[torch.arange(b, device=dev), (pos % w).long()] = pos
+    return q, k, v, kpos.contiguous(), pos
+
+
+def flash_bound_ms(b, w, itemsize) -> tuple:
+    """Least time for flash decode: the K and V caches and kpos read once
+    (q and the output are under 0.1% of it), against fp32 FMAs."""
+    nbytes = 2 * b * w * N_KV * HEAD_DIM * itemsize + 4 * b * w
+    flops = 2 * 2 * b * w * N_KV * GROUP * HEAD_DIM
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def phase_flash() -> dict:
+    """Flash decode against its plain version, row and tail invariance,
+    then timed at long windows and at the serve phase's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode_kernel, flash_decode_ref
+    from repro_torch.kernels.flash_decode import kernel as flash
+    chunk = flash.LIBRARY.lib.flash_decode_chunk()
+    worst = 0.0
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 4, 16):
+            for w in (32, 4096, 32768):
+                q, k, v, kpos, pos = flash_inputs(b, w, dtype, seed=b * 7 + w)
+                for window in (0, w // 2):
+                    o = flash_decode_kernel(q, k, v, kpos, pos, window=window)
+                    p = flash_decode_ref(q, k, v, kpos, pos, window=window)
+                    torch.cuda.synchronize()
+                    if not bool(torch.isfinite(o).all()):
+                        fail(f"flash output not finite ({dtype}, B={b}, W={w})")
+                    err = float((o - p).abs().max())
+                    rel = err / float(p.abs().max())
+                    worst = max(worst, rel)
+                    errs[(dtype, b, w, window)] = err
+                    if rel > KERNEL_TOL:
+                        fail(f"flash kernel disagrees with its plain version ({dtype}, B={b}, "
+                             f"W={w}, window={window}): {rel:.3e}")
+                    for i in range(b):
+                        one = flash_decode_kernel(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                                  kpos[i:i + 1], pos[i:i + 1], window=window)
+                        if not torch.equal(one, o[i:i + 1]):
+                            fail(f"flash row {i} differs from its own B=1 launch ({dtype}, "
+                                 f"B={b}, W={w}, window={window})")
+                    ext = 2 * chunk
+                    noise = torch.randn((b, ext, N_KV, HEAD_DIM), device="cuda").to(dtype)
+                    k2 = torch.cat([k, noise], 1)
+                    v2 = torch.cat([v, noise], 1)
+                    kp2 = torch.cat([kpos, torch.full((b, ext), -1, dtype=torch.int32,
+                                                      device="cuda")], 1)
+                    if not torch.equal(flash_decode_kernel(q, k2, v2, kp2, pos, window=window), o):
+                        fail(f"flash output changed when W grew by {ext} masked slots "
+                             f"({dtype}, B={b}, W={w}, window={window})")
+                    del k2, v2, kp2, noise
+                print(f"[flash] {str(dtype)[6:]} B={b:2d} W={w:5d}: max|k-p| "
+                      f"{errs[(dtype, b, w, 0)]:.3e} / {errs[(dtype, b, w, w // 2)]:.3e} "
+                      f"(window 0 / W/2); rows == own B=1 launch; W -> W+{2 * chunk} "
+                      f"masked: bitwise equal", flush=True)
+                del q, k, v, kpos, pos
+    print(f"[flash] worst max|k-p|/max|p| {worst:.3e} (tolerance {KERNEL_TOL:g})")
+    torch.cuda.empty_cache()
+    rows = {}
+    for b, w in ((4, 144), (1, 4096), (4, 32768), (16, 32768)):
+        q, k, v, kpos, pos = flash_inputs(b, w, torch.bfloat16, seed=3)
+        qs = q.reshape(b, N_KV * GROUP, 1, HEAD_DIM)
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = ((kpos >= 0) & (kpos <= pos[:, None]))[:, None, None, :]
+        t_k = median_ms(lambda: flash_decode_kernel(q, k, v, kpos, pos))
+        t_host = median_ms(lambda: flash_decode_kernel(q, k, v, kpos, pos), device_only=False)
+        t_p = median_ms(lambda: flash_decode_ref(q, k, v, kpos, pos), iters=20)
+        t_l = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                               enable_gqa=True))
+        b_ms, b_by, nbytes = flash_bound_ms(b, w, 2)
+        o = flash_decode_kernel(q, k, v, kpos, pos)
+        p = flash_decode_ref(q, k, v, kpos, pos)
+        torch.cuda.synchronize()
+        rows[(b, w)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                            max_abs_err=float((o - p).abs().max()), nbytes=nbytes,
+                            host_ms=t_host)
+        print(f"[flash] time bf16 B={b:2d} W={w:5d}: kernel {t_k:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {nbytes} bytes, {b_ms / t_k:.1%} of it), plain {t_p:.4f} ms, "
+              f"scaled_dot_product_attention {t_l:.4f} ms (device time, median of 25 / 20 / 25 "
+              f"launches); kernel with the host's launch time {t_host:.4f} ms", flush=True)
+        del q, k, v, kpos, pos, qs, ks, vs, mask
+    flash_pass_profile(4, 32768)
+    flash_decode_kernel.launches = 0       # comparison launches do not count
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_pass_profile(b, w):
+    """Device time of the kernel's two passes (chunk partials, combine) at
+    one shape, from ``torch.profiler``'s CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_decode import flash_decode_kernel
+    q, k, v, kpos, pos = flash_inputs(b, w, torch.bfloat16, seed=3)
+    flash_decode_kernel(q, k, v, kpos, pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            flash_decode_kernel(q, k, v, kpos, pos)
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        name = "chunk" if "chunk_kernel" in e.key else "combine" if "combine_kernel" in e.key \
+            else None
+        if name:
+            parts.append(f"{name} {e.device_time / 1e3:.4f} ms")
+    print(f"[flash] passes at bf16 B={b} W={w} (torch.profiler, mean of 10): "
+          + ", ".join(parts))
+
+
 def phase_small():
     """A small fp32 MoE model: the CUDA path (kernel) against the plain
     CPU path on the same weights."""
@@ -351,14 +524,78 @@ def phase_slice() -> dict:
         fail("the main path did not go through the moe_ffn kernel on both sides")
     eng = res["engine"]
     print(f"[slice] tokens {toks.cpu().tolist()[0]} == greedy_generate: True")
-    print(f"[slice] kernel launches on the main path: {launches} "
-          f"(engine+shadow {res['launches_engine']}, reference "
-          f"{res['launches_reference']})")
+    print(f"[slice] kernel launches on the main path (engine+shadow): "
+          f"{res['launches_engine']}; in the greedy_generate check: "
+          f"{res['launches_reference']} (all {launches})")
     print(f"[slice] recall {eng_recall(res)}, loads {eng.slots.stats['loads']}, "
           f"bytes_moved {eng.slots.bytes_moved}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     phase_breakdown(cfg, params, eng, res)
-    return {"launches": launches}
+    return {"launches": res["launches_engine"], "cfg": cfg, "params": params}
+
+
+SERVE_SEED = 4     # the first make_traffic seed whose burst makes the half-dense pool preempt
+
+
+def phase_serve(cfg, params) -> dict:
+    """``serve_traffic`` at Mixtral-8x7B width on the slice's parameters:
+    8 burst requests through a half-dense KV pool."""
+    import math
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode_kernel
+    from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_packed_kernel
+    from repro_torch.launch.serve import build_parser, serve_traffic
+    from repro_torch.serve import make_traffic
+    max_batch, page_tokens = 4, 16
+    reqs = make_traffic(cfg, 8, 0.0, prompt_len=128, max_new=8, seed=SERVE_SEED)
+    window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+    pages = math.ceil(window / page_tokens) * max_batch // 2
+    print(f"[serve] {len(reqs)} requests at t=0 (make_traffic seed {SERVE_SEED}): prompts "
+          f"{[len(r.prompt) for r in reqs]}, budgets {[r.max_new_tokens for r in reqs]}; "
+          f"window {window} slots; KV pool {pages} pages x {page_tokens} slots = half the "
+          f"dense footprint of {max_batch} windows", flush=True)
+    args = build_parser().parse_args(
+        ["--requests", "8", "--arrival-rate", "0", "--prompt-len", "128", "--tokens", "8",
+         "--max-batch", str(max_batch), "--compose", "overlap", "--predictor", "sep",
+         "--shadow", "int8", "--transport-precision", "fp32", "--workers", "8",
+         "--seed", str(SERVE_SEED), "--kv-pages", str(pages),
+         "--page-tokens", str(page_tokens)])
+    torch.cuda.reset_peak_memory_stats()
+    for kern in (moe_ffn_kernel, moe_ffn_packed_kernel, flash_decode_kernel):
+        kern.launches = 0
+    t0 = time.perf_counter()
+    out = serve_traffic(cfg, params, args)       # raises unless every request == solo
+    launches = {"moe_ffn": moe_ffn_kernel.launches,
+                "flash_decode": flash_decode_kernel.launches}
+    if launches != {k: out["launches_serving"][k] + out["launches_reference"][k]
+                    for k in launches}:
+        fail(f"launch counts {launches} are not the serving and reference counts summed")
+    res = out["result"]
+    print(f"[serve] serve_traffic took {time.perf_counter() - t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if len(res.outputs) != len(reqs):
+        fail("not every request was served")
+    for r in reqs:
+        toks = res.outputs[r.rid]
+        if len(toks) != r.max_new_tokens or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab_size:
+            fail(f"request {r.rid}: {len(toks)} tokens, out of budget or vocabulary")
+    st = res.kv_stats
+    if res.mean_batch <= 1.0:
+        fail(f"mean batch {res.mean_batch:.2f}: no composed step")
+    if st["preemptions"] < 1 or st["resumes"] < 1:
+        fail(f"the half-dense pool did not preempt and resume ({st})")
+    for name in ("moe_ffn", "flash_decode"):
+        if out["launches_serving"][name] <= 0 or out["launches_reference"][name] <= 0:
+            fail(f"{name} did not launch on both the serving and the reference side")
+    steps = res.steps
+    print(f"[serve] tokens of all {len(reqs)} requests == solo greedy_generate; mean batch "
+          f"{res.mean_batch:.2f} over {len(steps)} composed steps; preemptions "
+          f"{st['preemptions']}, resumes {st['resumes']}, deferred admissions "
+          f"{st['deferred_admissions']}; kernel launches on the main path (engine+shadow) "
+          f"{out['launches_serving']}; in the solo greedy_generate check "
+          f"{out['launches_reference']} (all {launches})")
+    return {"launches": out["launches_serving"]}
 
 
 # Per-worker bytes a packed-resident slot must hold at Mixtral-8x7B width:
@@ -448,7 +685,7 @@ def phase_packed_slice() -> dict:
               f"({cfg.num_layers} fp32 layers, all {cfg.num_experts} experts per layer): "
               f"{shadow_ms:.3f} ms",
               flush=True)
-        out["launches"] += launches
+        out["launches"] += res["packed_launches_engine"]
         out["runs"][precision] = dict(tpot_ms=tpot, per_worker=mem["per_worker_bytes"])
         del res, eng, toks
         torch.cuda.empty_cache()
@@ -504,11 +741,13 @@ def main():
     phase_build()
     rows = phase_kernel()
     prows = phase_packed_kernel()
+    frows = phase_flash()
     phase_small()
     moe = phase_slice()
+    serve = phase_serve(moe.pop("cfg"), moe.pop("params"))
     torch.cuda.empty_cache()
     packed = phase_packed_slice()
-    row, prow = rows[(2, 1)], prows[("int8", 2, 1)]
+    row, prow, frow = rows[(2, 1)], prows[("int8", 2, 1)], frows[(4, 144)]
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",
@@ -528,6 +767,15 @@ def main():
         "yardstick": "torch.bmm fp32 formula on the dequantized weights (no PyTorch call "
                      "dequantizes inside its product)",
         "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} int8 codes + scales (engine wave)",
+    }, {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode/kernel.py:74",
+        "launches": serve["launches"]["flash_decode"], "max_abs_err": frow["max_abs_err"],
+        "ms": frow["ms"], "plain_ms": frow["plain_ms"], "bound_ms": frow["bound_ms"],
+        "bound_by": frow["bound_by"], "library_ms": frow["library_ms"],
+        "shape": f"B=4 W=144 K={N_KV} G={GROUP} Hd={HEAD_DIM} bf16 (serve phase's composed "
+                 "step)",
     }]
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,26 +1,31 @@
 """The paper's system: SEP prediction, alignment, the cacheless
-on-demand expert loading engine, worker-group scheduling, the expert
-store and worker slots (full-width or packed-resident), prefill
-assignment and the decode timing model."""
+on-demand expert loading engine (single stream and the request-level API
+the serving loop composes), worker-group scheduling, the expert store
+and worker slots (full-width or packed-resident), prefill assignment and
+the decode and serving timing model."""
 from .align import AlignmentPolicy, kv_bytes_per_token, token_bytes
-from .engine import LayerRecord, ODMoEEngine, TokenRecord, Trace
+from .engine import (LayerRecord, ODMoEEngine, TokenRecord, Trace, concat_cache_lists,
+                     slice_cache_list, wave_preds)
 from .predictor import (FrequencyPredictor, GateExtrapolator, RandomPredictor,
-                        SEPShadow, moe_layer_indices, recall_counts,
-                        topk_to_layer_dict)
+                        SEPShadow, concat_shadow_states, moe_layer_indices, recall_counts,
+                        slice_shadow_state, topk_to_layer_dict)
 from .prefill import experts_activated, prefill_expert_assignment, split_minibatches
 from .schedule import GroupSchedule
 from .store import DeviceShard, ExpertStore, LoadEvent, WorkerSlots
 from .timing import (RTX3090_EDGE, DecodeClock, HardwareProfile, ODMoETimings,
-                     embedding_payload, layer_bytes, simulate_cached, simulate_odmoe,
-                     simulate_prefill_cached, simulate_prefill_odmoe)
+                     ServingTimings, degraded_tpot_report, embedding_payload, latency_percentiles,
+                     layer_bytes, node_memory_report, poisson_arrivals, simulate_cached,
+                     simulate_odmoe, simulate_prefill_cached, simulate_prefill_odmoe)
 
 __all__ = [
     "AlignmentPolicy", "kv_bytes_per_token", "token_bytes", "LayerRecord",
-    "ODMoEEngine", "TokenRecord", "Trace", "FrequencyPredictor", "GateExtrapolator",
-    "RandomPredictor", "SEPShadow", "moe_layer_indices", "recall_counts",
+    "ODMoEEngine", "TokenRecord", "Trace", "concat_cache_lists", "slice_cache_list",
+    "wave_preds", "FrequencyPredictor", "GateExtrapolator", "RandomPredictor", "SEPShadow",
+    "concat_shadow_states", "moe_layer_indices", "recall_counts", "slice_shadow_state",
     "topk_to_layer_dict", "experts_activated", "prefill_expert_assignment",
     "split_minibatches", "GroupSchedule", "DeviceShard", "ExpertStore", "LoadEvent",
     "WorkerSlots", "RTX3090_EDGE", "DecodeClock", "HardwareProfile", "ODMoETimings",
-    "embedding_payload", "layer_bytes", "simulate_cached", "simulate_odmoe",
-    "simulate_prefill_cached", "simulate_prefill_odmoe",
+    "ServingTimings", "degraded_tpot_report", "embedding_payload", "latency_percentiles",
+    "layer_bytes", "node_memory_report", "poisson_arrivals", "simulate_cached",
+    "simulate_odmoe", "simulate_prefill_cached", "simulate_prefill_odmoe",
 ]

@@ -8,7 +8,11 @@ experts are loaded just in time and from which they are evicted right
 after their layer computes (no cache).  Mispredictions trigger reloads,
 the paper's fallback path.  ``generate`` decodes one fixed batch end to
 end (the paper's single-stream experiment); ``prefill_request`` +
-``decode_batch`` are its steps.
+``decode_batch`` are its steps, and the request-level API the
+continuous-batching serving loop (``repro_torch.serve``) is built on:
+per-request caches stay apart between iterations and join with
+``concat_cache_lists`` for each composed step, so requests join and
+retire between steps while sharing one worker fleet and one store.
 
 Correctness invariant: greedy tokens equal ``greedy_generate(...,
 transport=policy)`` on the same weights.  Decode-time expert compute
@@ -23,7 +27,8 @@ the slots keep wire-format codes and scales and each wave runs one
 dequantization is exact, so the tokens are the same.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md
-queue 1): speculative decoding, prefetch executors and residency,
+queue 1): speculative decoding (``decode_batch_spec`` runs one-token
+waves only), prefetch executors and residency,
 fleet profiles and faults, compute-vs-ship, and the per-pair ``loop``
 wave oracle.
 """
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,10 +49,11 @@ from repro_torch.models.blocks import block_decode
 from repro_torch.models.config import MOE_FF, NO_FF, ModelConfig
 from repro_torch.models.layers import apply_norm, embed
 from repro_torch.models.moe import route
-from repro_torch.models.transformer import (layer_params, logits_from_hidden,
+from repro_torch.models.transformer import (decode_logits, layer_params, tree_concat,
                                             tree_leaves, tree_map, tree_stack)
 from repro_torch.quant.quantize import shadow_nbytes
 from repro_torch.quant.transport import resolve_policy, transport_params
+from repro_torch.rows import row_blocks
 
 from .align import AlignmentPolicy
 from .predictor import (FrequencyPredictor, GateExtrapolator, RandomPredictor,
@@ -66,7 +72,7 @@ class LayerRecord:
     correct: int                         # sum_b |pred_b ∩ true_b|
     reloads: int
     assignments: List[Tuple[int, int]]   # (expert, worker)
-    waves: List[List[Tuple[int, int]]]   # per-wave subsets of assignments
+    waves: Optional[List[List[Tuple[int, int]]]] = None  # per-wave subsets
     touched: Tuple[int, ...] = ()        # every worker that took a load
     gates: Optional[np.ndarray] = None   # (B,k) gate weights
 
@@ -78,6 +84,10 @@ class TokenRecord:
     aligned_kv: bool
     layers: List[LayerRecord] = field(default_factory=list)
     seconds: float = 0.0                 # measured wall time of this step
+    # positions a wave carried per request and tokens it committed (1 and
+    # B for the one-token step; the timing model prices the wave width)
+    spec_len: int = 1
+    committed: int = 1
 
 
 @dataclass
@@ -113,6 +123,50 @@ class Trace:
         return reloads / loads if loads else 0.0
 
 
+def wave_preds(preds_steps: List[Dict[int, np.ndarray]]) -> Dict[int, np.ndarray]:
+    """Fold per-step predictions into wave-row order: {layer -> (B*S, k)}
+    with row ``b*S + s`` = request ``b``, wave position ``s``
+    (``repro.core.specdecode.wave_preds``)."""
+    out: Dict[int, np.ndarray] = {}
+    for li in preds_steps[0]:
+        stacked = np.stack([np.asarray(p[li]) for p in preds_steps], axis=1)   # (B, S, k)
+        out[li] = stacked.reshape(-1, stacked.shape[-1])
+    return out
+
+
+# ------------------------------------------------------- batch membership
+def concat_cache_lists(cache_lists: Sequence):
+    """Join per-request per-layer caches along the batch axis.
+
+    Dense cache lists concatenate their KV tensors (every request was
+    prefilled with the same window).  Paged handles
+    (``repro_torch.serve.kvpool.PagedRequestCache``) compose into a batch
+    view instead: nothing is copied here, each layer gathers from the pool
+    through the members' page tables when the step indexes it and
+    scatters back on assignment.  An empty batch raises ``ValueError``;
+    mixing paged and dense members raises ``TypeError``."""
+    if not cache_lists:
+        raise ValueError("cannot compose an empty batch of caches")
+    first = cache_lists[0]
+    paged = [hasattr(c, "compose") for c in cache_lists]
+    if any(paged) and not all(paged):
+        raise TypeError("cannot mix paged and dense caches in one composed batch")
+    if paged[0]:
+        return first.compose(cache_lists)
+    if len(cache_lists) == 1:
+        return list(first)
+    return [tree_concat(list(per_layer)) for per_layer in zip(*cache_lists)]
+
+
+def slice_cache_list(cache_list, i: int):
+    """Request ``i`` of a composed cache list (batch of 1).  A paged batch
+    returns the member's handle: the step's scatter already committed its
+    pages."""
+    if hasattr(cache_list, "member"):
+        return cache_list.member(i)
+    return [tree_map(lambda a: a[i:i + 1], c) for c in cache_list]
+
+
 def _not_ported(feature: str, item: str):
     raise NotImplementedError(f"{feature} is not ported yet (ROADMAP.md "
                               f"queue 1, {item})")
@@ -143,6 +197,7 @@ class ODMoEEngine:
             _not_ported("compute_vs_ship", "fleet/ and serve/")
         if wave_compute != "grouped":
             _not_ported(f"wave_compute={wave_compute!r}", "core/engine.py loop oracle")
+        self.predictor_kind = predictor
         self.device = resolve_device(device)
         if params["embed"]["table"].device != self.device:
             raise ValueError(f"params live on {params['embed']['table'].device}, "
@@ -196,12 +251,24 @@ class ODMoEEngine:
                      for pos in range(len(pattern)))
 
     # ----------------------------------------------------------- requests
-    def prefill_request(self, batch, max_cache_len: int):
+    def prefill_request(self, batch, max_cache_len: int, *, kv_pool=None,
+                        rid: Optional[int] = None):
         """Prefill on the main node (the full model, as the reference's
-        engine does).  Returns ``(first_token (B,), cache_list, pos (B,))``."""
+        engine does).  Returns ``(first_token (B,), cache_list, pos (B,))``.
+
+        With ``kv_pool`` (a ``repro_torch.serve.kvpool.KVPool``) the
+        prefilled KV moves into pool pages and ``cache_list`` is the paged
+        stand-in: one request (B=1) keyed by ``rid``, whose prompt pages
+        the caller has made sure fit."""
         logits, state = prefill(self.cfg, self.params, batch, max_cache_len)
         token = torch.argmax(logits, dim=-1).to(torch.int32)
-        return token, self._unstack(state["caches"]), state["pos"]
+        cache_list = self._unstack(state["caches"])
+        if kv_pool is not None:
+            if batch["tokens"].shape[0] != 1 or rid is None:
+                raise ValueError("paged prefill adopts one request (B=1) with its "
+                                 "request id")
+            cache_list = kv_pool.adopt(rid, cache_list, batch["tokens"].shape[1])
+        return token, cache_list, state["pos"]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -264,12 +331,30 @@ class ODMoEEngine:
             moe_i += 1
             x, cache_list[li], _ = block_decode(cfg, lp, (kinds[0], NO_FF), x,
                                                 cache_list[li], pos)
-            h = apply_norm(cfg, x, lp["norm2"])[:, 0]          # router input
+            # the router input in fixed row blocks, as block_decode computes it
+            h = row_blocks(lambda t: apply_norm(cfg, t, lp["norm2"]), x)[:, 0]
             topk_idx, topk_gate = route(cfg, lp["ff"], h)
             x = self._moe_bookkeeping(step_idx, li, moe_i, pending,
                                       topk_idx.cpu().numpy(), h, topk_gate, x, rec)
-        logits = logits_from_hidden(cfg, self.params, x)[:, 0]
+        logits = decode_logits(cfg, self.params, x)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache_list, pos + 1
+
+    @torch.no_grad()
+    def decode_batch_spec(self, tokens, cache_list, pos, preds, step_idx,
+                          rec: TokenRecord):
+        """A draft-verify-accept wave for the (possibly composed) batch,
+        ``tokens`` (B, S).  Only S = 1 is ported: it is the one-token step,
+        and returns ``(tokens (B, 1), commits (B,) of ones, cache_list,
+        pos + 1)`` with ``rec.spec_len, rec.committed = 1, B``.  S > 1
+        raises (ROADMAP.md queue 1, item 2)."""
+        b, s_w = tokens.shape
+        if s_w != 1:
+            _not_ported("speculative verify waves (S > 1)", "core/specdecode.py")
+        tok, cache_list, pos = self.decode_batch(tokens[:, 0], cache_list, pos, preds,
+                                                 step_idx, rec)
+        rec.spec_len, rec.committed = 1, b
+        return (tok[:, None], torch.ones((b,), dtype=torch.int32, device=tok.device),
+                cache_list, pos)
 
     def _moe_bookkeeping(self, step_idx, li, moe_i, pending, true, h,
                          topk_gate, x, rec: TokenRecord):

@@ -23,7 +23,7 @@ import torch
 from repro_torch.models.api import prefill
 from repro_torch.models.config import MOE_FF, ModelConfig
 from repro_torch.models.moe import top_k
-from repro_torch.models.transformer import lm_decode
+from repro_torch.models.transformer import lm_decode, tree_concat, tree_map
 from repro_torch.quant import shadow_params
 
 
@@ -111,6 +111,27 @@ class SEPShadow:
 
     def align_kv(self, main_state):
         self.state = self.align_kv_state(self.state, main_state)
+
+
+def concat_shadow_states(states) -> dict:
+    """Join per-request shadow states along the batch axis: caches are
+    stacked per pattern position with a leading repeat axis, so their
+    batch axis is 1; ``pos`` and ``token`` are (B,).  States must share
+    one cache length (the serving loop prefills every request with the
+    same window)."""
+    if len(states) == 1:
+        return states[0]
+    caches = tuple(tree_concat([s["caches"][p] for s in states], dim=1)
+                   for p in range(len(states[0]["caches"])))
+    return {"caches": caches, "pos": torch.cat([s["pos"] for s in states]),
+            "token": torch.cat([s["token"] for s in states])}
+
+
+def slice_shadow_state(state: dict, i: int) -> dict:
+    """Request ``i`` of a composed shadow state (batch of 1)."""
+    caches = tuple(tree_map(lambda a: a[:, i:i + 1], c) for c in state["caches"])
+    return {"caches": caches, "pos": state["pos"][i:i + 1],
+            "token": state["token"][i:i + 1]}
 
 
 # ------------------------------------------------------- on-the-fly

@@ -34,13 +34,14 @@ from repro_torch.quant.transport import (EXPERT_WEIGHT_NAMES, PackedWeight,
 
 @dataclass
 class LoadEvent:
-    token: int              # decoding iteration
+    token: int              # decoding iteration (serving: global step index)
     layer: int              # absolute layer index
     expert: int
     worker: int
     predicted: bool         # True: loaded on a prediction; False: reload
     bytes: int              # packed transport payload that crossed the link
     scheme: str = "fp32"    # transport precision this load shipped at
+    requests: Tuple[int, ...] = ()   # serving: request ids sharing this load
 
 
 @dataclass(frozen=True)
@@ -171,6 +172,13 @@ class WorkerSlots:
         self.stats = {"loads": 0, "predicted_loads": 0, "reloads": 0,
                       "hits": 0, "evictions": 0}
         self.bytes_moved: int = 0
+        self._request_context: Tuple[int, ...] = ()
+
+    def set_request_context(self, request_ids) -> None:
+        """Tag the following load events with the composed batch's request
+        ids: one physical load then carries every request it serves, the
+        amortization the serving report counts."""
+        self._request_context = tuple(int(r) for r in request_ids)
 
     def load(self, token: int, layer: int, expert: int, worker: int,
              predicted: bool) -> bool:
@@ -191,8 +199,9 @@ class WorkerSlots:
         self.stats["predicted_loads" if predicted else "reloads"] += 1
         nbytes = self.store.packed_bytes(layer, expert)
         self.bytes_moved += nbytes
-        self.events.append(LoadEvent(token, layer, expert, worker, predicted,
-                                     nbytes, self.store.scheme_of(layer, expert)))
+        self.events.append(LoadEvent(token, layer, expert, worker, predicted, nbytes,
+                                     self.store.scheme_of(layer, expert),
+                                     requests=self._request_context))
         return True
 
     def slot(self, worker: int, layer: int, expert: int) -> dict:

@@ -11,15 +11,18 @@ and the OD-MoE pipeline (worker grouping, staggered loads, shadow
 lookahead, alignment late departure, misprediction reloads) is replayed
 event by event from an engine ``Trace``, following Figs. 2/4/5.  The
 fully-cached baseline and the prefill models price the same config.
-``RTX3090_EDGE`` is the paper's edge testbed.  Counterpart:
-``repro.core.timing``; the serving timings, the offload-cache baselines
-and the fleet and fault state wait (ROADMAP.md queue 1).
+The serving loop drives the same clock step by step, charging prefills
+and KV swaps between decode steps; ``ServingTimings`` turns the
+per-request timestamps into TTFT/TPOT/throughput.  ``RTX3090_EDGE`` is
+the paper's edge testbed.  Counterpart: ``repro.core.timing``; the
+offload-cache baselines and the fleet and fault state wait (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -76,6 +79,31 @@ def layer_bytes(cfg: ModelConfig, wb: int) -> Dict[str, float]:
 def embedding_payload(cfg: ModelConfig, wb: int = 4) -> float:
     """One token's activation shipped main<->worker (paper: ~16 KB)."""
     return cfg.d_model * wb
+
+
+def degraded_tpot_report(per_token_s: List[float], alive_workers: List[int],
+                         n_workers: int) -> Dict[str, float]:
+    """Split per-token decode time into healthy-fleet and degraded-fleet
+    steps (any worker dead = degraded).  Every value is finite: an empty
+    bucket reports 0.0, and an all-healthy run has ``healthy_only`` True
+    and ``degradation_x`` 1.0."""
+    healthy = [d for d, a in zip(per_token_s, alive_workers) if a >= n_workers]
+    degraded = [d for d, a in zip(per_token_s, alive_workers) if a < n_workers]
+
+    def mean(xs):
+        return float(np.mean(xs)) if xs else 0.0
+
+    return {
+        "steps": len(per_token_s),
+        "degraded_steps": len(degraded),
+        "healthy_only": not degraded,
+        "min_alive_workers": min(alive_workers) if alive_workers else n_workers,
+        "tpot_s": mean(per_token_s),
+        "tpot_healthy_s": mean(healthy),
+        "tpot_degraded_s": mean(degraded),
+        "degradation_x": (mean(degraded) / mean(healthy)
+                          if healthy and degraded else 1.0),
+    }
 
 
 @dataclass
@@ -148,6 +176,32 @@ class DecodeClock:
         if self.transport.trivial or expert is None:
             return self._expert_bytes
         return self._scheme_bytes(self.transport.scheme_for(layer, int(expert)))
+
+    def alive_workers(self) -> int:
+        """Workers alive after the last step: the whole fleet (faults are
+        not ported)."""
+        return self.sched.n_workers
+
+    def advance_to(self, t: float) -> None:
+        """Idle until ``t`` (waiting for the next arrival)."""
+        if t > self.now:
+            self.now = t
+
+    def charge_prefill(self, seconds: float) -> None:
+        """Serialize a prefill on the pipeline: the main node and every
+        worker are busy for its duration (§3.3 loads every expert across
+        the workers)."""
+        self.now += seconds
+        for w in range(self.sched.n_workers):
+            self.worker_free[w] = max(self.worker_free[w], self.now)
+
+    def charge_kv_swap(self, nbytes: float) -> float:
+        """A KV-page preemption or resume: the pages cross the main node's
+        host link, and decode waits for them, so the transfer serializes
+        on the clock.  Returns the charged seconds."""
+        dt = self.profile.t_load(nbytes)
+        self.now += dt
+        return dt
 
     def step(self, rec) -> tuple:
         """Advance through one decode iteration of ``rec`` (an engine
@@ -290,3 +344,119 @@ def simulate_prefill_cached(cfg: ModelConfig, profile: HardwareProfile,
     over the batch."""
     active = cfg.active_param_count() * profile.weight_bytes
     return profile.t_stream(active) * (1 + prompt_len / 2048)
+
+
+# ---------------------------------------------------------------- serving
+def poisson_arrivals(rate: float, n: int, seed: int = 0) -> List[float]:
+    """Arrival times (seconds) of ``n`` requests from a Poisson process at
+    ``rate`` req/s (numpy's generator, so the times equal the reference's
+    for a seed); ``rate <= 0`` puts everything at t=0."""
+    if rate <= 0:
+        return [0.0] * n
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.exponential(1.0 / rate, size=n)).tolist()
+
+
+def latency_percentiles(xs: List[float], prefix: str) -> Dict[str, float]:
+    """mean/p50/p95/p99 of a latency sample; an empty sample reports 0.0
+    everywhere."""
+    if not xs:
+        return {f"{prefix}_{k}_s": 0.0 for k in ("mean", "p50", "p95", "p99")}
+    p50, p95, p99 = np.percentile(xs, (50, 95, 99))
+    return {f"{prefix}_mean_s": float(np.mean(xs)), f"{prefix}_p50_s": float(p50),
+            f"{prefix}_p95_s": float(p95), f"{prefix}_p99_s": float(p99)}
+
+
+@dataclass
+class ServingTimings:
+    """Per-request latency and aggregate throughput of a serving run, in
+    the clock's modelled seconds.  Lists are positional, in ascending
+    request-id order.  TTFT covers admission wait and prefill (the first
+    token falls out of prefill); TPOT is the mean gap over the remaining
+    tokens.  ``tenants`` and the SLO lists (optional, same order) feed
+    ``per_tenant_report``.  Every report field is finite."""
+    arrival_s: List[float]
+    first_token_s: List[float]
+    finish_s: List[float]
+    tokens: List[int]
+    tenants: Optional[List[str]] = None
+    ttft_slo_s: Optional[List[float]] = None
+    tpot_slo_s: Optional[List[float]] = None
+
+    @property
+    def ttft_s(self) -> List[float]:
+        return [f - a for f, a in zip(self.first_token_s, self.arrival_s)]
+
+    @property
+    def tpot_s(self) -> List[float]:
+        return [(fin - ft) / (n - 1) if n > 1 else 0.0
+                for fin, ft, n in zip(self.finish_s, self.first_token_s, self.tokens)]
+
+    @property
+    def makespan_s(self) -> float:
+        if not self.finish_s:
+            return 0.0
+        return max(self.finish_s) - min(self.arrival_s)
+
+    @property
+    def tokens_per_s(self) -> float:
+        span = self.makespan_s
+        return sum(self.tokens) / span if span > 0 else 0.0
+
+    def _subset(self, idx: List[int]) -> "ServingTimings":
+        def pick(xs):
+            return [xs[i] for i in idx] if xs is not None else None
+
+        return ServingTimings(arrival_s=pick(self.arrival_s),
+                              first_token_s=pick(self.first_token_s),
+                              finish_s=pick(self.finish_s), tokens=pick(self.tokens),
+                              tenants=pick(self.tenants), ttft_slo_s=pick(self.ttft_slo_s),
+                              tpot_slo_s=pick(self.tpot_slo_s))
+
+    @staticmethod
+    def _attainment(xs: List[float], slos: Optional[List[float]]) -> float:
+        """Share of requests meeting their SLO (no target counts as met;
+        an empty sample is 1.0)."""
+        if not xs or slos is None:
+            return 1.0
+        return float(np.mean([x <= s for x, s in zip(xs, slos)]))
+
+    def report(self) -> Dict[str, float]:
+        ttft, tpot = self.ttft_s, self.tpot_s
+        rep = {"n_requests": len(self.tokens), "total_tokens": int(sum(self.tokens)),
+               "makespan_s": self.makespan_s, "throughput_tok_s": self.tokens_per_s}
+        rep.update(latency_percentiles(ttft, "ttft"))
+        rep.update(latency_percentiles(tpot, "tpot"))
+        if self.ttft_slo_s is not None or self.tpot_slo_s is not None:
+            rep["ttft_slo_attainment"] = self._attainment(ttft, self.ttft_slo_s)
+            rep["tpot_slo_attainment"] = self._attainment(tpot, self.tpot_slo_s)
+        return rep
+
+    def per_tenant_report(self) -> Dict[str, Dict[str, float]]:
+        """``report()`` by tenant class; without labels one ``"default"``
+        class."""
+        tenants = self.tenants or ["default"] * len(self.tokens)
+        out: Dict[str, Dict[str, float]] = {}
+        for name in sorted(set(tenants)) or ["default"]:
+            out[name] = self._subset([i for i, t in enumerate(tenants)
+                                      if t == name]).report()
+        return out
+
+
+def node_memory_report(engine, kv_pool=None, budget_bytes: Optional[int] = None) -> Dict:
+    """Per-node device bytes under the OD-MoE budget: the expert slot of a
+    one-slot worker, the transient packed buffer live while a shard
+    dequantizes on arrival, and the paged KV pool (zero when serving runs
+    dense).  ``budget_bytes`` adds a pass/fail against a budget."""
+    slots = engine.slots
+    slot_bytes = slots.slot_unit_bytes()
+    transient = slots.transient_packed_bytes()
+    kv_bytes = kv_pool.pool_bytes() if kv_pool is not None else 0
+    rep = {"expert_slot_bytes": slot_bytes, "transient_packed_bytes": transient,
+           "kv_page_bytes": kv_bytes,
+           "kv_pages": kv_pool.num_pages if kv_pool is not None else 0,
+           "total_bytes": slot_bytes + transient + kv_bytes}
+    if budget_bytes is not None:
+        rep["budget_bytes"] = int(budget_bytes)
+        rep["within_budget"] = rep["total_bytes"] <= budget_bytes
+    return rep

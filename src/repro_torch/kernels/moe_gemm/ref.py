@@ -2,19 +2,21 @@
 import torch
 import torch.nn.functional as F
 
+from repro_torch.rows import row_blocks
+
 
 def moe_ffn_ref(xd, w_gate, w_up, w_down):
     """xd: (E, C, D) -> (E, C, D) in fp32.
 
-    One product per expert, each of the same ``(C, D) @ (D, F)`` shape
-    whatever ``E`` is: a batched product may pick another algorithm for
-    another batch count, and an expert's output must not depend on how
-    many experts were stacked beside it (engine waves stack one or two,
-    the reference all of them)."""
+    One product per expert and per block of rows (``rows.row_blocks``),
+    each of the same ``(ROW_BLOCK, D) @ (D, F)`` shape whatever ``E`` and
+    ``C`` are: a product may pick another algorithm for another shape, and
+    a (row, expert) output must not depend on how many experts or rows
+    rode with it (engine waves stack one or two experts, the reference all
+    of them; a composed decode batch has more rows than a solo one)."""
     x32 = xd.float()
     out = []
     for e in range(x32.shape[0]):
-        h = F.silu(x32[e] @ w_gate[e].float())
-        u = x32[e] @ w_up[e].float()
-        out.append((h * u) @ w_down[e].float())
+        wg, wu, wd = w_gate[e].float(), w_up[e].float(), w_down[e].float()
+        out.append(row_blocks(lambda xb: (F.silu(xb @ wg) * (xb @ wu)) @ wd, x32[e]))
     return torch.stack(out)

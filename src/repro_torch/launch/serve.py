@@ -1,4 +1,6 @@
-"""Serving entry point: the OD-MoE cacheless engine, single-stream mode.
+"""Serving entry point: the OD-MoE cacheless engine.
+
+Single-stream mode (the paper's experiment):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --tokens 32 --predictor sep --shadow int8 --device cuda
@@ -6,30 +8,46 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --packed-slots \
       --transport-precision tiered
 
-Runs real prefill + decode through ``ODMoEEngine`` (prediction,
+Continuous-batching mode (``repro_torch.serve``), enabled by
+``--requests``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \
+      --arrival-rate 2.0 --max-batch 4 [--kv-pages 24 --page-tokens 16]
+
+Both run real prefill + decode through ``ODMoEEngine`` (prediction,
 on-demand loading, alignment, eviction) on the registry config's
-reduced variant, checks the tokens against the dense reference under
-the same transport policy, and prints recall, loads, bytes moved,
-memory and the measured wall time per decoded token, then the decode
-speed the timing model gives for the paper's testbed (a model, never a
+reduced variant and check the tokens against the dense reference under
+the same transport policy (per request, against its solo decode, in
+serving mode).  They print recall, loads, bytes moved, memory and the
+measured wall time per decoded token or per composed step, then what
+the timing model gives for the paper's testbed (a model, never a
 measurement).  ``--packed-slots`` keeps wire-format experts in the
 worker slots and computes them with the in-register-dequant kernel.
-Continuous batching and cluster mode wait (ROADMAP.md queue 1).
+Cluster mode (``--replicas > 1``) waits for ``fleet/`` (ROADMAP.md
+queue 1, item 5).
 """
 from __future__ import annotations
 
 import argparse
 import statistics
 import time
+from collections import defaultdict
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import RTX3090_EDGE, ODMoEEngine, simulate_cached, simulate_odmoe
+from repro_torch.core import (RTX3090_EDGE, ODMoEEngine, node_memory_report,
+                              simulate_cached, simulate_odmoe)
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_decode import flash_decode_kernel
 from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_packed_kernel
 from repro_torch.models import greedy_generate, init_params
 from repro_torch.quant import TieredPolicy, UniformPolicy
+from repro_torch.serve import (BatchComposer, KVPool, ServingLoop, WorkloadSpec,
+                               dense_cache_footprint, make_trace, make_traffic)
+
+MODELLED = f"modelled ({RTX3090_EDGE.name} profile, not measured)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,6 +69,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="packed-resident worker slots: keep the wire-format codes "
                          "and scales resident and dequantize in registers inside "
                          "the grouped kernel (same tokens, smaller slots)")
+    # ------------------------------------------------- serving mode flags
+    ap.add_argument("--requests", type=int, default=0,
+                    help="serve N requests through continuous batching (0 = single "
+                         "stream)")
+    ap.add_argument("--arrival-rate", type=float, default=2.0,
+                    help="arrival rate, requests/s of modelled time (<=0: all at t=0)")
+    ap.add_argument("--max-batch", type=int, default=4, help="composed decode batch cap")
+    ap.add_argument("--compose", default="overlap", choices=["overlap", "fifo", "fair"],
+                    help="batch composition policy (fair: per-tenant weighted deficit "
+                         "round-robin)")
+    ap.add_argument("--workload", default="uniform", choices=["uniform", "trace"],
+                    help="'uniform': the near-uniform make_traffic mix; 'trace': "
+                         "heavy-tailed multi-tenant traffic (repro_torch.serve.workload)")
+    ap.add_argument("--arrival", default="bursty", choices=["poisson", "bursty", "diurnal"],
+                    help="arrival process for --workload trace")
+    ap.add_argument("--preempt", default="youngest", choices=["youngest", "slack"],
+                    help="KV-page preemption victim: youngest admission, or most "
+                         "TPOT-deadline slack")
+    ap.add_argument("--admit", default="fifo", choices=["fifo", "priority"],
+                    help="admission order: arrival FIFO, or tenant-weight priority")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="serve decode KV out of a paged pool of this many pages "
+                         "(0 = dense per-request buffers)")
+    ap.add_argument("--page-tokens", type=int, default=16,
+                    help="KV slots per page (with --kv-pages)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas over one fleet (cluster mode, not ported)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain PyTorch path")
     return ap
@@ -175,6 +220,130 @@ def serve_single(cfg, params, args) -> dict:
             "modelled_tok_s": modelled, "step_seconds": steps}
 
 
+def build_requests(cfg, args):
+    if args.workload == "trace":
+        spec = WorkloadSpec(n_requests=args.requests, rate=args.arrival_rate,
+                            arrival=args.arrival, prompt_median=args.prompt_len,
+                            max_prompt=4 * args.prompt_len, output_median=args.tokens,
+                            max_output=2 * args.tokens)
+        return make_trace(cfg, spec, seed=args.seed)
+    return make_traffic(cfg, args.requests, args.arrival_rate, prompt_len=args.prompt_len,
+                        max_new=args.tokens, seed=args.seed)
+
+
+def check_bit_exact(cfg, params, reqs, outputs, transport) -> bool:
+    """Every served request must equal its solo reference decode under the
+    same transport policy."""
+    device = params["embed"]["table"].device
+    exact = True
+    for r in reqs:
+        ref = greedy_generate(cfg, params,
+                              {"tokens": torch.as_tensor(r.prompt, device=device)[None, :]},
+                              r.max_new_tokens, transport=transport)[0]
+        exact &= bool(np.array_equal(ref.cpu().numpy(), outputs[r.rid]))
+    print(f"  per-request tokens == solo reference (same transport policy): {exact}")
+    if not exact:
+        raise AssertionError("serving output diverged from the single-request reference")
+    return exact
+
+
+def _percentile_line(rep, m: str) -> str:
+    return (f"  {m.upper()}  mean {rep[f'{m}_mean_s'] * 1e3:.2f} ms   "
+            f"p50 {rep[f'{m}_p50_s'] * 1e3:.2f}   p95 {rep[f'{m}_p95_s'] * 1e3:.2f}   "
+            f"p99 {rep[f'{m}_p99_s'] * 1e3:.2f}   [{MODELLED}]")
+
+
+def serve_traffic(cfg, params, args) -> dict:
+    """Serve ``--requests`` through ``ServingLoop``, check every request
+    against its solo decode, and print the latency report (modelled), the
+    measured composed-step times by batch size, load amortization and the
+    KV pool's counters.  Returns the result, the engine, the pool and the
+    kernel launches on the serving side and on the reference side."""
+    if args.replicas > 1:
+        raise NotImplementedError("cluster serving (--replicas > 1) is not ported yet: "
+                                  "it waits for fleet/ (ROADMAP.md queue 1, item 5)")
+    device = params["embed"]["table"].device
+    transport = build_transport(cfg, params, args)
+    kernels = (moe_ffn_kernel, moe_ffn_packed_kernel, flash_decode_kernel)
+    launches0 = [k.launches for k in kernels]
+    eng = ODMoEEngine(cfg, params, n_workers=args.workers, predictor=args.predictor,
+                      shadow_scheme=args.shadow, seed=args.seed, transport=transport,
+                      device=device, packed_slots=args.packed_slots)
+    reqs = build_requests(cfg, args)
+    kv_pool = (KVPool(cfg, num_pages=args.kv_pages, page_tokens=args.page_tokens,
+                      device=device) if args.kv_pages else None)
+    loop = ServingLoop(eng, max_batch=args.max_batch,
+                       composer=BatchComposer(args.max_batch, args.compose, kv_pool=kv_pool),
+                       kv_pool=kv_pool, preempt=args.preempt, admit=args.admit)
+    res = loop.run(reqs)
+    launches1 = [k.launches for k in kernels]
+    check_bit_exact(cfg, params, reqs, res.outputs, transport)
+    launches2 = [k.launches for k in kernels]
+    rep = res.timings.report()
+    print(f"  requests: {rep['n_requests']}  tokens: {rep['total_tokens']}  mean batch: "
+          f"{res.mean_batch:.2f}")
+    for m in ("ttft", "tpot"):
+        print(_percentile_line(rep, m))
+    print(f"  throughput: {rep['throughput_tok_s']:.2f} tok/s over {rep['makespan_s']:.3f} s "
+          f"makespan [{MODELLED}]")
+    by_b = defaultdict(list)
+    for st in res.steps:
+        by_b[len(st.request_ids)].append(st.wall_s)
+    print(f"  measured composed decode step on {device} (median wall time, host clock "
+          "ending in a device sync): " + ", ".join(
+              f"B={b} {statistics.median(ts) * 1e3:.3f} ms (n={len(ts)})"
+              for b, ts in sorted(by_b.items())))
+    if args.workload == "trace":
+        print(f"  trace: {args.arrival} arrivals, preempt={args.preempt}, admit={args.admit}, "
+              f"compose={args.compose}")
+        for name, tr in res.tenant_report().items():
+            print(f"  [{name}] n={tr['n_requests']}  TTFT p50/p95/p99 "
+                  f"{tr['ttft_p50_s'] * 1e3:.2f}/{tr['ttft_p95_s'] * 1e3:.2f}/"
+                  f"{tr['ttft_p99_s'] * 1e3:.2f} ms  TPOT p95 {tr['tpot_p95_s'] * 1e3:.2f} ms  "
+                  f"SLO ttft {tr['ttft_slo_attainment']:.2f} tpot "
+                  f"{tr['tpot_slo_attainment']:.2f}  [{MODELLED}]")
+    ev = eng.slots.events
+    served = [len(e.requests) for e in ev if e.requests]
+    if served:
+        print(f"  loads: {len(ev)}  mean requests/load: {np.mean(served):.2f}  "
+              f"multi-request loads: {sum(1 for s in served if s > 1)}/{len(served)}  "
+              f"loads/step: {len(ev) / max(len(res.steps), 1):.3f}")
+    print(f"  load stats: {eng.slots.stats}")
+    print_transport_stats(eng)
+    if kv_pool is not None:
+        st = res.kv_stats
+        occ = [s.kv_pages_used for s in res.steps if s.kv_pages_used >= 0]
+        dense = dense_cache_footprint(cfg, kv_pool.window_pages * kv_pool.page_tokens,
+                                      len(reqs))
+        print(f"  kv pool: {st['num_pages']} pages x {st['page_tokens']} tokens = "
+              f"{st['pool_bytes'] / 1e6:.2f} MB (dense footprint for {len(reqs)} requests: "
+              f"{dense / 1e6:.2f} MB)")
+        print(f"  occupancy: peak {st['peak_pages_used']}/{st['num_pages']} pages"
+              + (f", mean {np.mean(occ):.1f}" if occ else "")
+              + f"  deferred admissions: {st['deferred_admissions']}")
+        print(f"  preemptions: {st['preemptions']}  resumes: {st['resumes']}  swapped: "
+              f"{(st['swap_out_bytes'] + st['swap_in_bytes']) / 1e6:.2f} MB "
+              f"({st['swap_s'] * 1e3:.3f} ms {MODELLED})")
+    mem = node_memory_report(eng, kv_pool)
+    print("  per-node memory: " + ", ".join(f"{k}={v / 1e6:.2f}MB" for k, v in mem.items()
+                                            if k.endswith("bytes")))
+    per_req = {r.rid: 0 for r in reqs}
+    for e in ev:
+        for rid in e.requests:
+            if rid in per_req:
+                per_req[rid] += e.bytes
+    if any(per_req.values()):
+        vals = list(per_req.values())
+        print(f"  wire bytes/request: mean {np.mean(vals) / 1e6:.2f} MB  max "
+              f"{max(vals) / 1e6:.2f} MB")
+    names = ("moe_ffn", "moe_ffn_packed", "flash_decode")
+    serving = {n: b - a for n, a, b in zip(names, launches0, launches1)}
+    reference = {n: b - a for n, a, b in zip(names, launches1, launches2)}
+    print(f"  kernel launches: serving (engine+shadow) {serving}, reference {reference}")
+    return {"result": res, "engine": eng, "kv_pool": kv_pool, "requests": reqs,
+            "launches_serving": serving, "launches_reference": reference}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -182,13 +351,21 @@ def main(argv=None):
     if not cfg.num_experts:
         raise SystemExit(f"{args.arch} has no experts: OD-MoE loading does "
                          "not apply")
+    if args.replicas > 1 and not args.requests:
+        raise SystemExit("--replicas > 1 needs --requests traffic")
     params = init_params(cfg, seed=args.seed, device=device)
+    mode = (f"continuous batching: {args.requests} {args.workload} requests @ "
+            f"{args.arrival_rate}/s, max-batch {args.max_batch} ({args.compose})"
+            if args.requests else "single stream")
     print(f"[serve] {cfg.name} on {device}: E={cfg.num_experts} top{cfg.top_k}, "
           f"{args.workers} workers, predictor={args.predictor}"
           + (f"/{args.shadow}" if args.predictor == "sep" else "")
           + f", transport={args.transport_precision}"
-          + (", packed slots" if args.packed_slots else "") + " — single stream")
-    serve_single(cfg, params, args)
+          + (", packed slots" if args.packed_slots else "") + f" — {mode}")
+    if args.requests:
+        serve_traffic(cfg, params, args)
+    else:
+        serve_single(cfg, params, args)
 
 
 if __name__ == "__main__":

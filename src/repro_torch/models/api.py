@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 
 from . import transformer as tf_lib
-from .attention import seq_bucket
+from .attention import cache_width, seq_bucket
 from .config import ATTN, ModelConfig
 
 
@@ -68,14 +68,14 @@ def _params_device(params) -> torch.device:
 
 
 # ------------------------------------------------------------------ serving
-def _bucketed_prefill_ok(cfg: ModelConfig, bucket: int, max_cache_len: int) -> bool:
+def _bucketed_prefill_ok(cfg: ModelConfig, t: int, bucket: int, max_cache_len: int) -> bool:
     """Padding the prompt to its pow2 bucket is inert only when every
-    mixer is attention, the bucket fits the cache, and no sliding window
+    mixer is attention, the prompt fits the cache, and no sliding window
     is narrower than the bucket (``seed_cache`` keeps the LAST ``window``
     positions, which would be pads)."""
     if any(mixer != ATTN for mixer, _ in cfg.layer_kinds()):
         return False
-    if bucket > max_cache_len:
+    if t > max_cache_len:
         return False
     return not (cfg.sliding_window and cfg.sliding_window < bucket)
 
@@ -85,15 +85,25 @@ def prefill(cfg: ModelConfig, params, batch, max_cache_len: int):
     """Process the prompt; return (last-token logits, decode state).
 
     The prompt pads to its pow2 bucket where that is inert; pad slots'
-    cache entries are marked empty (``pos = -1``)."""
+    cache entries are marked empty (``pos = -1``).  A cache narrower than
+    the bucket is seeded at the bucket's width and cut to its own (the
+    prompt's positions sit in the first slots), so a prompt's prefill
+    runs at the same shapes whatever the cache length: a request served
+    with the loop's window prefills as its solo decode does.  (The
+    reference takes the unpadded path there; the two agree within fp32
+    tolerance.)"""
     _require_ported(cfg)
     tokens = batch["tokens"].to(_params_device(params))
     b, t = tokens.shape
     bucket = seq_bucket(t)
-    if _bucketed_prefill_ok(cfg, bucket, max_cache_len):
+    if _bucketed_prefill_ok(cfg, t, bucket, max_cache_len):
         logits, caches = tf_lib.lm_seq(cfg, params, F.pad(tokens, (0, bucket - t)),
-                                       make_cache=True, max_cache_len=max_cache_len)
-        caches = tuple(dict(c, pos=torch.where(c["pos"] >= t, -1, c["pos"]))
+                                       make_cache=True,
+                                       max_cache_len=max(max_cache_len, bucket))
+        w = cache_width(cfg, max_cache_len)
+        caches = tuple({"k": c["k"][:, :, :w].contiguous(), "v": c["v"][:, :, :w].contiguous(),
+                        "pos": torch.where(c["pos"][:, :, :w] >= t, -1,
+                                           c["pos"][:, :, :w]).contiguous()}
                        for c in caches)
     else:
         logits, caches = tf_lib.lm_seq(cfg, params, tokens, make_cache=True,

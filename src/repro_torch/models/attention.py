@@ -17,6 +17,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.rows import row_blocks
+
 from .config import ModelConfig
 from .layers import apply_rope, dense_init
 
@@ -54,9 +57,15 @@ def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
+def cache_width(cfg: ModelConfig, max_len: int) -> int:
+    """Slots per KV cache: the sliding window if set (capped at
+    ``max_len``), else ``max_len``."""
+    return min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> dict:
-    w = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+    w = cache_width(cfg, max_len)
     hd = cfg.resolved_head_dim
     shape = (batch, w, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -148,10 +157,24 @@ def seed_cache(cfg: ModelConfig, params, x, positions, max_len: int) -> dict:
 # ------------------------------------------------------------------- decode
 def attn_decode(cfg: ModelConfig, params, x, cache, pos) -> Tuple[torch.Tensor, dict]:
     """One-token decode.  x: (B,1,d); pos: (B,) absolute position.
-    Writes slot ``pos % W`` of a copy of the cache and returns it."""
-    q, k, v = _project_qkv(cfg, params, x)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
+    Writes slot ``pos % W`` of a copy of the cache and returns it.  The
+    projections run in fixed row blocks (``rows.row_blocks``), so a
+    row's bits do not depend on B.
+
+    The score/mask/softmax/PV core is ``kernels.flash_decode.flash_decode``
+    on both devices (the hand-written kernel on the card, its plain
+    version on the host), with head ``h = k*G + g`` as in
+    :func:`_gqa_scores`.  It computes in fp32 and rounds once, to the
+    model dtype, before ``wo``; the reference rounds its scale and its
+    probabilities to the model dtype first, so the two agree exactly in
+    semantics only at fp32.  The card has no soft cap: a config with
+    ``logit_soft_cap`` raises there."""
+    def qkv(h, p):
+        q, k, v = _project_qkv(cfg, params, h)
+        return (apply_rope(q, p[:, None], cfg.rope_theta, cfg.rope_fraction),
+                apply_rope(k, p[:, None], cfg.rope_theta, cfg.rope_fraction), v)
+
+    q, k, v = row_blocks(qkv, x, pos)
     w = cache["k"].shape[1]
     slot = pos.long() % w
     b_idx = torch.arange(x.shape[0], device=x.device)
@@ -159,12 +182,9 @@ def attn_decode(cfg: ModelConfig, params, x, cache, pos) -> Tuple[torch.Tensor, 
     cache["k"][b_idx, slot] = k[:, 0]
     cache["v"][b_idx, slot] = v[:, 0]
     cache["pos"][b_idx, slot] = pos.to(torch.int32)
-    scores = _gqa_scores(cfg, q, cache["k"]).float()             # (B,K,G,1,W)
-    kp = cache["pos"][:, None, None, None, :]
-    p = pos[:, None, None, None, None]
-    valid = (kp >= 0) & (kp <= p)
-    if cfg.sliding_window:
-        valid = valid & (p - kp < w)
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    return _gqa_out(cfg, probs, cache["v"], params), cache
+    b, _, h, hd = q.shape
+    qg = q[:, 0].reshape(b, cfg.num_kv_heads, h // cfg.num_kv_heads, hd).contiguous()
+    o = flash_decode(qg, cache["k"], cache["v"], cache["pos"], pos.to(torch.int32),
+                     window=w if cfg.sliding_window else 0,
+                     soft_cap=cfg.logit_soft_cap or 0.0)
+    return row_blocks(lambda t: t @ params["wo"], o.to(x.dtype).reshape(b, 1, h * hd)), cache

@@ -9,6 +9,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.rows import row_blocks
+
 from . import attention as attn_lib
 from .config import ATTN, DENSE_FF, MOE_FF, NO_FF, ModelConfig
 from .layers import apply_norm, dense_init, swiglu_mlp
@@ -70,9 +72,20 @@ def block_seq(cfg: ModelConfig, params, kinds, x, positions, *,
 
 def block_decode(cfg: ModelConfig, params, kinds, x, cache, pos
                  ) -> Tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
-    """One-token block.  x: (B,1,d).  Returns (x, new_cache, topk_idx)."""
+    """One-token block.  x: (B,1,d).  Returns (x, new_cache, topk_idx).
+
+    The norms, projections, router and dense FF run in fixed row blocks
+    (``rows.row_blocks``); the experts run on the real rows only, through
+    the grouped FFN, whose per-row bits do not depend on the row count."""
     _require_attention(kinds)
-    h = apply_norm(cfg, x, params["norm1"])
+    h = row_blocks(lambda t: apply_norm(cfg, t, params["norm1"]), x)
     out, cache = attn_lib.attn_decode(cfg, params["mixer"], h, cache, pos)
-    x, topk_idx = apply_ff(cfg, params, kinds, x + out)
-    return x, cache, topk_idx
+    x = x + out
+    if kinds[1] == NO_FF:
+        return x, cache, None
+    h = row_blocks(lambda t: apply_norm(cfg, t, params["norm2"]), x)
+    if kinds[1] == MOE_FF:
+        b, t, d = h.shape
+        y, topk_idx = moe_grouped(cfg, params["ff"], h.reshape(b * t, d))
+        return x + y.reshape(b, t, d), cache, topk_idx.reshape(b, t, cfg.top_k)
+    return x + row_blocks(lambda t: swiglu_mlp(t, params["ff"]), h), cache, None

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.moe_gemm import combine_topk, grouped_topk_contrib
+from repro_torch.rows import row_blocks
 
 from .config import ModelConfig
 from .layers import dense_init
@@ -41,10 +42,15 @@ def top_k(x, k: int):
 
 
 def route(cfg: ModelConfig, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (N, d) -> (topk_idx (N,k) int64, topk_gate (N,k) fp32)."""
-    logits = x.float() @ params["router"].float()
-    topk_logits, topk_idx = top_k(logits, cfg.top_k)
-    return topk_idx, torch.softmax(topk_logits, dim=-1)
+    """x: (N, d) -> (topk_idx (N,k) int64, topk_gate (N,k) fp32), in fixed
+    row blocks (``rows.row_blocks``), so a row's gate does not depend on
+    how many rows were routed with it."""
+    def gate(t):
+        logits = t.float() @ params["router"].float()
+        topk_logits, topk_idx = top_k(logits, cfg.top_k)
+        return topk_idx, torch.softmax(topk_logits, dim=-1)
+
+    return row_blocks(gate, x)
 
 
 def moe_grouped(cfg: ModelConfig, params, x) -> Tuple[torch.Tensor, torch.Tensor]:

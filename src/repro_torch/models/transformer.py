@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.rows import row_blocks
+
 from .blocks import block_decode, block_seq, init_block
 from .config import MOE_FF, ModelConfig
 from .layers import apply_norm, dense_init, embed, unembed
@@ -38,6 +40,17 @@ def tree_stack(trees):
         return type(first)(tree_stack([t[i] for t in trees])
                             for i in range(len(first)))
     return torch.stack(trees)
+
+
+def tree_concat(trees, dim: int = 0):
+    """Concatenate same-structured trees leaf by leaf along ``dim``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_concat([t[k] for t in trees], dim) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_concat([t[i] for t in trees], dim)
+                            for i in range(len(first)))
+    return torch.cat(trees, dim=dim)
 
 
 def tree_leaves(tree):
@@ -81,6 +94,12 @@ def logits_from_hidden(cfg: ModelConfig, params, x):
     return x @ params["head"]["w"]
 
 
+def decode_logits(cfg: ModelConfig, params, x):
+    """(B,1,d) hidden -> (B,V) logits of a decode step, in fixed row
+    blocks (``rows.row_blocks``)."""
+    return row_blocks(lambda t: logits_from_hidden(cfg, params, t), x)[:, 0]
+
+
 # ---------------------------------------------------------------- sequence
 def lm_seq(cfg: ModelConfig, params, tokens, *, make_cache: bool = False,
            max_cache_len: int = 0):
@@ -120,7 +139,7 @@ def lm_decode(cfg: ModelConfig, params, token, caches, pos
             x, c, idx = block_decode(cfg, lp, kinds, x, lc, pos)
             new_caches[i].append(c)
             topk[i].append(idx)
-    logits = logits_from_hidden(cfg, params, x)[:, 0]
+    logits = decode_logits(cfg, params, x)
     aux = {"topk": tuple(torch.stack(topk[i]) for i, kinds in enumerate(pattern)
                          if kinds[1] == MOE_FF)}
     return logits, tuple(tree_stack(c) for c in new_caches), aux

@@ -48,3 +48,30 @@ def torch_trace(trace):
                 touched=tuple(lr.touched), gates=arr(lr.gates)))
         out.records.append(tr)
     return out
+
+
+def torch_requests(requests):
+    """JAX ``repro.serve.Request``s as the port's, field for field."""
+    from repro_torch.serve import Request
+    return [Request(rid=r.rid, prompt=np.asarray(r.prompt), max_new_tokens=r.max_new_tokens,
+                    arrival_s=r.arrival_s, tenant=r.tenant, weight=r.weight,
+                    ttft_slo_s=r.ttft_slo_s, tpot_slo_s=r.tpot_slo_s)
+            for r in requests]
+
+
+def step_fields(step):
+    """A serving ``StepRecord`` of either package as plain values: batch
+    membership, pool occupancy, queue counts and the composed record's
+    routing, predictions and loads (the modelled times are compared apart,
+    within a tolerance)."""
+    rec = step.record
+
+    def arr(a):
+        return None if a is None else np.asarray(a).tolist()
+
+    layers = [(lr.layer, lr.moe_index, lr.group, arr(lr.predicted), arr(lr.true), lr.correct,
+               lr.reloads, list(lr.assignments), [list(w) for w in (lr.waves or [])],
+               tuple(lr.touched)) for lr in rec.layers]
+    return (step.step, list(step.request_ids), step.alive_workers, step.kv_pages_used,
+            step.queue_counts, rec.index, rec.aligned_token, rec.aligned_kv, rec.spec_len,
+            rec.committed, layers)

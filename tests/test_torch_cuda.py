@@ -1,7 +1,8 @@
-"""Card-only tests of the port: the hand-written CUDA grouped FFN and its
-packed-weight twin against their plain PyTorch versions and against each
-other, their refusals, and the engine on the card (full-width and
-packed-resident slots).
+"""Card-only tests of the port: the hand-written CUDA grouped FFN, its
+packed-weight twin and flash-decode attention against their plain PyTorch
+versions (and the two FFNs against each other), their invariances and
+refusals, the engine on the card (full-width and packed-resident slots)
+and the serving loop on the card against solo decoding.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -12,12 +13,16 @@ import pytest
 import torch
 
 from repro_torch.core import ODMoEEngine
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_kernel, flash_decode_ref
+from repro_torch.kernels.flash_decode import kernel as flash_lib
 from repro_torch.kernels.moe_gemm import (grouped_topk_contrib, grouped_topk_contrib_packed,
                                           moe_ffn, moe_ffn_kernel, moe_ffn_packed,
                                           moe_ffn_packed_kernel, moe_ffn_packed_ref,
                                           moe_ffn_ref)
 from repro_torch.models import ModelConfig, greedy_generate, init_params
+from repro_torch.models import attention as attn_lib
 from repro_torch.quant import TieredPolicy, dequantize_tiles, device_layout, get_codec
+from repro_torch.serve import KVPool, ServingLoop, make_traffic
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +271,124 @@ def test_packed_engine_on_the_card_equals_greedy(dev, transport):
     assert torch.equal(toks, greedy_generate(cfg, params, batch, 8, transport=transport))
     assert eng.slots.transient_packed_bytes() == 0
     assert eng.memory_report()["per_worker_bytes"] < eng.store.expert_bytes
+
+
+# ------------------------------------------------------------ flash decode
+def _flash(dev, b, w, kh, g, hd, dtype, seed=0):
+    """Ring-buffer caches: wrapped positions, unfilled slots, and the slot
+    of ``pos`` itself always valid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, kh, g, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, w, kh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, w, kh, hd), generator=gen, device=dev).to(dtype)
+    pos = torch.randint(0, 3 * w, (b,), generator=gen, device=dev, dtype=torch.int32)
+    slots = torch.arange(w, device=dev)
+    kpos = pos[:, None] - (pos[:, None] - slots[None]) % w
+    kpos = torch.where(kpos < 0, -1, kpos)
+    kpos = torch.where(torch.rand((b, w), generator=gen, device=dev) > 0.75, -1, kpos)
+    kpos = kpos.to(torch.int32)
+    kpos[torch.arange(b, device=dev), (pos % w).long()] = pos
+    return q, k, v, kpos.contiguous(), pos
+
+
+FLASH = [(1, 7, 2, 2, 16), (3, 40, 2, 2, 16), (2, 300, 8, 4, 128), (4, 600, 2, 5, 24),
+         (2, 1030, 4, 1, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,kh,g,hd", FLASH)
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_kernel_matches_plain_version(dev, dtype, b, w, kh, g, hd, window):
+    """Head widths below or not a multiple of 32 (Hd=16, 24) leave a lane
+    idle in the last column group, and W=300, 600, 1030 end in a partial
+    256-slot chunk."""
+    args = _flash(dev, b, w, kh, g, hd, dtype)
+    o = flash_decode_kernel(*args, window=window)
+    p = flash_decode_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and o.shape == (b, kh, g, hd)
+    assert float((o - p).abs().max() / p.abs().max()) <= REL_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_rows_do_not_depend_on_batch_or_masked_tail(dev, dtype):
+    q, k, v, kpos, pos = _flash(dev, 5, 700, 8, 4, 128, dtype)
+    full = flash_decode_kernel(q, k, v, kpos, pos, window=300)
+    for i in range(5):
+        one = flash_decode_kernel(q[i:i + 1], k[i:i + 1], v[i:i + 1], kpos[i:i + 1],
+                                  pos[i:i + 1], window=300)
+        assert torch.equal(one, full[i:i + 1])
+    for extra in (1, 100, 2 * flash_lib.LIBRARY.lib.flash_decode_chunk() + 3):
+        noise = torch.randn((5, extra, 8, 128), device=dev).to(dtype)
+        grown = flash_decode_kernel(q, torch.cat([k, noise], 1), torch.cat([v, noise], 1),
+                                    torch.cat([kpos, torch.full((5, extra), -1, dtype=torch.int32,
+                                                                device=dev)], 1),
+                                    pos, window=300)
+        assert torch.equal(grown, full)
+
+
+def test_flash_kernel_counts_launches_and_gives_zero_on_an_empty_row(dev):
+    q, k, v, kpos, pos = _flash(dev, 2, 40, 2, 2, 16, torch.float32)
+    kpos[1] = -1
+    before = flash_decode_kernel.launches
+    out = flash_decode(q, k, v, kpos, pos)
+    assert flash_decode_kernel.launches == before + 1
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
+def test_flash_kernel_refuses_bad_inputs(dev):
+    q, k, v, kpos, pos = _flash(dev, 2, 40, 2, 2, 16, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_decode_kernel(q.cpu(), k.cpu(), v.cpu(), kpos.cpu(), pos.cpu())
+    with pytest.raises(TypeError):
+        flash_decode_kernel(q.half(), k.half(), v.half(), kpos, pos)
+    with pytest.raises(TypeError):
+        flash_decode_kernel(q, k.float(), v, kpos, pos)
+    with pytest.raises(TypeError):
+        flash_decode_kernel(q, k, v, kpos.long(), pos)
+    with pytest.raises(ValueError):
+        flash_decode_kernel(q, k.transpose(0, 1).contiguous().transpose(0, 1), v, kpos, pos)
+    with pytest.raises(ValueError):
+        flash_decode_kernel(q, k[:, :30], v, kpos, pos)
+    with pytest.raises(ValueError):
+        flash_decode_kernel(torch.zeros((2, 2, 17, 16), dtype=q.dtype, device=dev), k, v,
+                            kpos, pos)
+    with pytest.raises(NotImplementedError):
+        flash_decode(q, k, v, kpos, pos, soft_cap=30.0)
+
+
+def test_soft_cap_config_raises_on_the_card(dev):
+    cfg = ModelConfig(name="t-cap", family="dense", num_layers=1, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab_size=97, logit_soft_cap=30.0)
+    params = init_params(cfg, seed=0, device=dev)
+    mixer = {k: v[0] for k, v in params["layers"][0]["mixer"].items()}
+    cache = attn_lib.init_cache(cfg, 1, 8, torch.float32, dev)
+    with pytest.raises(NotImplementedError):
+        attn_lib.attn_decode(cfg, mixer, torch.ones(1, 1, 64, device=dev), cache,
+                             torch.tensor([0], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_served_tokens_equal_solo_greedy_on_the_card(dev, paged):
+    """Composed batches, deferral and preemption are scheduling: every
+    request's tokens equal its solo decode on the card."""
+    cfg = ModelConfig(name="t-moe", family="moe", num_layers=4, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=0, d_expert=96,
+                      vocab_size=97, num_experts=8, top_k=2)
+    params = init_params(cfg, seed=5, device=dev)
+    reqs = make_traffic(cfg, 6, 0.0, prompt_len=24, max_new=8, seed=2)
+    pool = None
+    if paged:
+        window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+        pool = KVPool(cfg, num_pages=-(-window // 4) * 4 // 2, page_tokens=4, device=dev)
+    before = flash_decode_kernel.launches
+    eng = ODMoEEngine(cfg, params, predictor="sep", device=dev)
+    res = ServingLoop(eng, max_batch=4, kv_pool=pool).run(reqs)
+    assert flash_decode_kernel.launches > before
+    assert res.mean_batch > 1
+    if paged:
+        assert res.kv_stats["preemptions"] >= 1
+    for r in reqs:
+        solo = greedy_generate(cfg, params, {"tokens": torch.as_tensor(r.prompt, device=dev)
+                                             [None, :]}, r.max_new_tokens)
+        assert solo[0].cpu().tolist() == res.outputs[r.rid].tolist(), r.rid

@@ -60,8 +60,9 @@ def test_seq_bucket_matches(n):
 
 
 def test_unbucketed_prefill_matches():
-    """A cache shorter than the prompt's bucket takes the unpadded path
-    in both packages."""
+    """A cache shorter than the prompt's bucket: the reference takes the
+    unpadded path, the port seeds at the bucket's width and cuts the
+    cache to 13 slots; logits and slot positions agree."""
     cfg = tiny_moe()
     params = jinit(cfg, jax.random.PRNGKey(3))
     toks = prompt(cfg, 4, length=12)
