@@ -6,16 +6,19 @@
 Phases, each of which ends the run with a non-zero exit on failure:
 
 1. card    — require CUDA; print ``nvidia-smi`` name and power limit.
-2. build   — compile the three hand-written kernels with nvcc, in
+2. build   — compile the four hand-written kernels with nvcc, in
              parallel: the grouped expert FFN
              (``src/repro_torch/csrc/moe_ffn.cu``), its packed-weight twin
-             (``moe_ffn_packed.cu``) and flash-decode attention
-             (``flash_decode.cu``); print ptxas's register and spill lines.
+             (``moe_ffn_packed.cu``), flash-decode attention
+             (``flash_decode.cu``) and the SSD inter-chunk scan
+             (``ssd_scan.cu``); print ptxas's register and spill lines.
 3. kernel  — hold the grouped FFN against its plain PyTorch version at the
-             decode path's shapes (D=4096, F=14336, bf16 weights,
-             E in {1,2,8}, C in {1,2,16}), check that per-(row, expert)
-             outputs are bitwise equal across E and C, and time the
-             kernel, its bound, the plain version and a torch.bmm formula.
+             decode and prefill paths' shapes (D=4096, F=14336, bf16
+             weights, E in {1,2,8,16}, C in {1,2,16,64}), check that
+             per-(row, expert) outputs are bitwise equal across E and C,
+             time a prefill's row blocks at three expert-row budgets, and
+             time the kernel, its bound, the plain version and a torch.bmm
+             formula.
 4. packed  — the packed kernel on fp16, int8 and nf4 parts at the same
              shapes: bitwise equal to the grouped FFN on the dequantized
              weights, within tolerance of its plain version, bitwise
@@ -24,7 +27,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              weights.
 5. flash   — the flash-decode kernel against its plain version at
              Mixtral's attention shapes (K=8, G=4, Hd=128; bf16 and fp32;
-             B in {1,4,16}; W in {32, 4096, 32768}; unfilled slots, ring
+             B in {1,4,16}; W in {32, 1008, 1040, 4096, 32768}, 1008
+             and 1040 being the Jamba phases' widths; unfilled slots, ring
              wrap, window in {0, W/2}): within tolerance, each row bitwise
              equal to its own B=1 launch, and bitwise equal when W grows by
              two chunks of masked slots; timed beside its bytes bound, its
@@ -50,12 +54,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
              turn: engine tokens equal ``greedy_generate`` under the same
              policy, the packed kernel launched, and the per-worker bytes
              are the packed payload of the largest resident shard.
+10. ssd    — the SSD inter-chunk scan kernel against its plain version at
+             Jamba's Mamba shape (H=128, P=64, N=128; B in {1,4}, NC in
+             {1,4,8}; zero start and a given h0) and at an odd shape (a
+             ragged float4 tail): bitwise equal, each batch row equal to
+             its own B=1 launch; P*N not a multiple of 4 and a misaligned
+             pointer must be refused; timed beside its bytes bound and its
+             plain version.
+11. jamba-slice — ``serve_single`` at Jamba-v0.1 width (6 layers: Mamba at
+             0-3 and 5, attention at 4, MoE at 1, 3 and 5), bf16, SEP int8
+             shadow, fp32 transport, a 1000-token prompt (4 chunks, the last
+             padded by 24) and 8 new tokens: engine tokens equal the port's
+             ``greedy_generate``, and ssd_scan, moe_ffn and flash_decode
+             launched on both sides; then the parts of a decoded token.
+12. jamba-serve — ``serve_traffic`` on the same parameters: 4 burst
+             requests (prompts 512-1023), max batch 4, overlap composition, a
+             KV pool of 16-slot pages at half the dense footprint of 4
+             windows over the one attention layer; every request equals its
+             solo ``greedy_generate``, the pool preempts and resumes, the
+             three kernels launched on both sides.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed.  The script imports nothing of JAX or of the
 JAX package ``repro``.
 """
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -71,6 +95,7 @@ FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
 D_MODEL, D_EXPERT = 4096, 14336
 N_KV, GROUP, HEAD_DIM = 8, 4, 128  # Mixtral-8x7B attention: 8 kv heads, 32 query heads
 KERNEL_TOL = 1e-4                 # max|k - p| / max|p|: fp32 sums in two orders
+SSD_TOL = 1e-6                    # the scan's second check, after bitwise equality
 
 
 def fail(msg: str) -> None:
@@ -99,9 +124,10 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_decode import kernel as flash
     from repro_torch.kernels.moe_gemm import kernel, packed
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:        # one nvcc per source, together
-        infos = list(pool.map(lambda m: m.LIBRARY.build(), (kernel, packed, flash)))
+    with ThreadPoolExecutor(4) as pool:        # one nvcc per source, together
+        infos = list(pool.map(lambda m: m.LIBRARY.build(), (kernel, packed, flash, ssd)))
     for info in infos:
         print(f"[build] {info['path']} built in {info['seconds']:.2f} s", flush=True)
         for line in info["report"].splitlines():
@@ -144,13 +170,16 @@ def phase_kernel() -> dict:
         w = torch.randn(shape, generator=gen, device=dev) * fan_in ** -0.5
         return w.to(torch.bfloat16)
 
-    x = torch.randn((16, D_MODEL), generator=gen, device=dev)
-    wg = weight((8, D_MODEL, D_EXPERT), D_MODEL)
-    wu = weight((8, D_MODEL, D_EXPERT), D_MODEL)
-    wd = weight((8, D_EXPERT, D_MODEL), D_EXPERT)
+    # E up to 16 (Jamba's experts, all of them in its shadow and reference)
+    # and C up to 64 (the rows of one of Jamba's prefill blocks, see
+    # moe_gemm/ops.py MAX_EXPERT_ROWS); D and F are Mixtral's and Jamba's
+    x = torch.randn((1024, D_MODEL), generator=gen, device=dev)
+    wg = weight((16, D_MODEL, D_EXPERT), D_MODEL)
+    wu = weight((16, D_MODEL, D_EXPERT), D_MODEL)
+    wd = weight((16, D_EXPERT, D_MODEL), D_EXPERT)
     outs, errs = {}, {}
-    for e in (1, 2, 8):
-        for c in (1, 2, 16):
+    for e in (1, 2, 8, 16):
+        for c in (1, 2, 16, 64):
             xd = x[:c].expand(e, c, D_MODEL).contiguous()
             k = moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
             p = moe_ffn_ref(xd, wg[:e], wu[:e], wd[:e])
@@ -164,12 +193,13 @@ def phase_kernel() -> dict:
             if rel > KERNEL_TOL:
                 fail(f"kernel disagrees with its plain version at E={e} C={c}")
             outs[(e, c)] = k
-    full = outs[(8, 16)]
+    full = outs[(16, 64)]
     for (e, c), k in outs.items():
         if not torch.equal(k, full[:e, :c]):
-            fail(f"per-(row, expert) outputs at E={e} C={c} differ from E=8 C=16")
-    print("[kernel] per-(row, expert) outputs bitwise equal across E in {1,2,8} "
-          "and C in {1,2,16}")
+            fail(f"per-(row, expert) outputs at E={e} C={c} differ from E=16 C=64")
+    print("[kernel] per-(row, expert) outputs bitwise equal across E in {1,2,8,16} "
+          "and C in {1,2,16,64}")
+    row_block_times(x, wg, wu, wd)
 
     def library(xd, e):
         xb = xd.to(torch.bfloat16)
@@ -191,6 +221,44 @@ def phase_kernel() -> dict:
     del wg, wu, wd, outs
     torch.cuda.empty_cache()
     return rows
+
+
+def row_block_times(x, wg, wu, wd) -> None:
+    """The cost of the grouped FFN's row blocks: one prefill's expert FFN
+    (Jamba's 1000 rows over 16 experts, a Mixtral serve prompt's 127 rows
+    over 8) at three expert-row budgets.  A smaller budget means more
+    calls, each of which reads every expert's weights again; a larger one
+    a larger workspace."""
+    import torch
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ops
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    saved = ops.MAX_EXPERT_ROWS
+    for e, n in ((16, JAMBA_PROMPT), (8, 127)):
+        h = x[:n]
+        slot = torch.stack([torch.randperm(e, generator=gen, device="cuda")[:2]
+                            for _ in range(n)]).int()
+        gates = torch.rand((n, 2), generator=gen, device="cuda")
+        ref = None
+        for budget in (512, 1024, 2048):
+            ops.MAX_EXPERT_ROWS = budget
+            rows = min(budget // e, 1 << (n - 1).bit_length())
+            ws = moe_kernel.LIBRARY.lib.moe_ffn_workspace_floats(e, rows, D_MODEL, D_EXPERT) * 4
+            out = ops.grouped_topk_contrib(h, wg[:e], wu[:e], wd[:e], slot, gates)
+            if ref is None:
+                ref = out
+            elif not torch.equal(out, ref):
+                fail(f"the grouped FFN's output changed with its row blocks (E={e} N={n})")
+            t_ms = median_ms(lambda: ops.grouped_topk_contrib(h, wg[:e], wu[:e], wd[:e],
+                                                              slot, gates),
+                             iters=3, warmup=1, device_only=False)
+            print(f"[kernel] row blocks E={e} N={n}: budget {budget} expert-rows -> "
+                  f"{-(-n // rows)} call(s) of {rows} rows, workspace {ws / 1e9:.2f} GB a "
+                  f"call, {t_ms:.3f} ms (CUDA events, host launches included, median of 3); "
+                  f"output bitwise equal across budgets", flush=True)
+            del out
+        torch.cuda.empty_cache()
+    ops.MAX_EXPERT_ROWS = saved
 
 
 PACKED_SCHEMES = ("fp16", "int8", "nf4")
@@ -345,6 +413,12 @@ def flash_bound_ms(b, w, itemsize) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
+# cache widths held against the plain version: Jamba's slice (a 1000-token
+# prompt and 8 new tokens) and its serve phase at most (prompts below 1024,
+# 8 new tokens, 2 spare slots, in 16-slot pages), besides short and long ones
+FLASH_WIDTHS = (32, 1008, 1040, 4096, 32768)
+
+
 def phase_flash() -> dict:
     """Flash decode against its plain version, row and tail invariance,
     then timed at long windows and at the serve phase's shape."""
@@ -357,7 +431,7 @@ def phase_flash() -> dict:
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for b in (1, 4, 16):
-            for w in (32, 4096, 32768):
+            for w in FLASH_WIDTHS:
                 q, k, v, kpos, pos = flash_inputs(b, w, dtype, seed=b * 7 + w)
                 for window in (0, w // 2):
                     o = flash_decode_kernel(q, k, v, kpos, pos, window=window)
@@ -520,18 +594,18 @@ def phase_slice() -> dict:
         fail("engine tokens out of the vocabulary")
     if not torch.equal(toks.cpu(), res["reference"].cpu()):
         fail("engine tokens differ from greedy_generate")
-    if res["launches_engine"] <= 0 or res["launches_reference"] <= 0:
+    if res["launches_engine"]["moe_ffn"] <= 0 or res["launches_reference"]["moe_ffn"] <= 0:
         fail("the main path did not go through the moe_ffn kernel on both sides")
     eng = res["engine"]
     print(f"[slice] tokens {toks.cpu().tolist()[0]} == greedy_generate: True")
     print(f"[slice] kernel launches on the main path (engine+shadow): "
-          f"{res['launches_engine']}; in the greedy_generate check: "
-          f"{res['launches_reference']} (all {launches})")
+          f"{res['launches_engine']['moe_ffn']}; in the greedy_generate check: "
+          f"{res['launches_reference']['moe_ffn']} (all {launches})")
     print(f"[slice] recall {eng_recall(res)}, loads {eng.slots.stats['loads']}, "
           f"bytes_moved {eng.slots.bytes_moved}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     phase_breakdown(cfg, params, eng, res)
-    return {"launches": res["launches_engine"], "cfg": cfg, "params": params}
+    return {"launches": res["launches_engine"]["moe_ffn"], "cfg": cfg, "params": params}
 
 
 SERVE_SEED = 4     # the first make_traffic seed whose burst makes the half-dense pool preempt
@@ -652,7 +726,7 @@ def phase_packed_slice() -> dict:
             fail(f"engine tokens have shape {tuple(toks.shape)}")
         if not torch.equal(toks.cpu(), res["reference"].cpu()):
             fail(f"packed engine tokens differ from greedy_generate ({precision})")
-        if res["packed_launches_engine"] <= 0:
+        if res["launches_engine"]["moe_ffn_packed"] <= 0:
             fail(f"the packed engine did not launch the packed kernel ({precision})")
         mem = eng.memory_report()
         want = PACKED_SLOT_BYTES.get(precision)
@@ -666,8 +740,8 @@ def phase_packed_slice() -> dict:
         peak = torch.cuda.max_memory_allocated() / 1e9
         print(f"[packed-slice] {precision} [{eng.transport.describe()}]: tokens "
               f"{toks.cpu().tolist()[0]} == greedy_generate: True; packed kernel launches "
-              f"{launches} (engine {res['packed_launches_engine']}, reference "
-              f"{res['packed_launches_reference']}), moe_ffn launches "
+              f"{launches} (engine {res['launches_engine']['moe_ffn_packed']}, reference "
+              f"{res['launches_reference']['moe_ffn_packed']}), moe_ffn launches "
               f"{moe_ffn_kernel.launches}")
         print(f"[packed-slice] {precision}: TPOT median {tpot:.3f} ms over {len(steps)} tokens, "
               f"loads {eng.slots.stats['loads']}, bytes_moved {eng.slots.bytes_moved}, "
@@ -685,7 +759,7 @@ def phase_packed_slice() -> dict:
               f"({cfg.num_layers} fp32 layers, all {cfg.num_experts} experts per layer): "
               f"{shadow_ms:.3f} ms",
               flush=True)
-        out["launches"] += res["packed_launches_engine"]
+        out["launches"] += res["launches_engine"]["moe_ffn_packed"]
         out["runs"][precision] = dict(tpot_ms=tpot, per_worker=mem["per_worker_bytes"])
         del res, eng, toks
         torch.cuda.empty_cache()
@@ -723,10 +797,263 @@ def phase_breakdown(cfg, params, eng, res):
     print(f"[breakdown] one expert load (pinned host -> card, {nbytes} bytes): "
           f"{load_ms:.3f} ms = {nbytes / load_ms / 1e6:.2f} GB/s")
     print(f"[breakdown] loads per decoded token: {loads_per_token:.3f}")
-    print(f"[breakdown] SEP shadow step (4 layers, all 8 experts per layer): "
-          f"{shadow_ms:.3f} ms")
-    print(f"[breakdown] reference decode_step (4 layers, all 8 experts per layer): "
-          f"{ref_ms:.3f} ms")
+    print(f"[breakdown] SEP shadow step ({cfg.num_layers} layers, all {cfg.num_experts} "
+          f"experts per MoE layer): {shadow_ms:.3f} ms")
+    print(f"[breakdown] reference decode_step ({cfg.num_layers} layers, all "
+          f"{cfg.num_experts} experts per MoE layer): {ref_ms:.3f} ms")
+    return dict(load_ms=load_ms, load_bytes=nbytes, loads_per_token=loads_per_token,
+                shadow_ms=shadow_ms, ref_ms=ref_ms)
+
+
+SSD_H, SSD_P, SSD_N = 128, 64, 128     # Jamba's Mamba2 mixer: 128 heads of 64 x state 128
+
+
+def ssd_inputs(b, nc, h, p, n, seed, with_h0):
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.randn((b, nc, h, p, n), generator=gen, device=dev)
+    decay = torch.rand((b, nc, h), generator=gen, device=dev) * 0.7 + 0.3
+    h0 = torch.randn((b, h, p, n), generator=gen, device=dev) if with_h0 else None
+    return s, decay, h0
+
+
+def ssd_bound_ms(b, nc, h, p, n, with_h0) -> tuple:
+    """Least time for the scan: s, decay (and h0) read once, h_in and
+    h_last written once, against fp32 operations (a multiply and an add per
+    element of s)."""
+    state = b * h * p * n
+    nbytes = 4 * (2 * nc * state + state + b * nc * h + (state if with_h0 else 0))
+    ops = 2 * nc * state
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def refuse(call, what: str) -> None:
+    """Fail unless ``call`` raises ValueError without launching."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    before = ssd_scan_kernel.launches
+    try:
+        call()
+    except ValueError:
+        if ssd_scan_kernel.launches != before:
+            fail(f"ssd scan kernel launched before refusing {what}")
+        return
+    fail(f"ssd scan kernel accepted {what}")
+
+
+def phase_ssd() -> dict:
+    """The SSD scan kernel against its plain version (bitwise) and each
+    batch row against its own B=1 launch, then timed at the Jamba slice's
+    prefill shape and a larger one."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_ref
+    shapes = [(b, nc, SSD_H, SSD_P, SSD_N) for b in (1, 4) for nc in (1, 4, 8)]
+    shapes.append((2, 5, 3, 5, 12))                   # a ragged float4 tail
+    worst = 0.0
+    errs = {}
+    for shape in shapes:
+        for with_h0 in (False, True):
+            s, decay, h0 = ssd_inputs(*shape, seed=sum(shape), with_h0=with_h0)
+            k_in, k_last = ssd_scan_kernel(s, decay, h0)
+            p_in, p_last = ssd_scan_ref(s, decay, h0)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(k_in).all()) and bool(torch.isfinite(k_last).all())):
+                fail(f"ssd scan output not finite at {shape}")
+            if not (torch.equal(k_in, p_in) and torch.equal(k_last, p_last)):
+                fail(f"ssd scan kernel differs from its plain version at {shape} "
+                     f"(h0 {'given' if with_h0 else 'None'})")
+            err = max(float((k_in - p_in).abs().max()), float((k_last - p_last).abs().max()))
+            rel = err / max(float(p_in.abs().max()), float(p_last.abs().max()))
+            worst = max(worst, rel)
+            errs[(shape, with_h0)] = err
+            b = shape[0]
+            for i in range(b):
+                one_in, one_last = ssd_scan_kernel(
+                    s[i:i + 1].contiguous(), decay[i:i + 1].contiguous(),
+                    None if h0 is None else h0[i:i + 1].contiguous())
+                if not (torch.equal(one_in, k_in[i:i + 1]) and
+                        torch.equal(one_last, k_last[i:i + 1])):
+                    fail(f"ssd scan row {i} differs from its own B=1 launch at {shape}")
+            print(f"[ssd] B={shape[0]} NC={shape[1]} H={shape[2]} P={shape[3]} N={shape[4]} "
+                  f"h0 {'given' if with_h0 else 'None '}: == plain version bitwise "
+                  f"(max|k-p| {err:.3e}); rows == own B=1 launch", flush=True)
+    # the kernel moves float4s: P*N not a multiple of 4 and a pointer that
+    # is not 16-byte aligned are refused, not computed
+    s, decay, _ = ssd_inputs(1, 4, 3, 5, 7, seed=9, with_h0=False)
+    refuse(lambda: ssd_scan_kernel(s, decay), "P*N=35")
+    s, decay, _ = ssd_inputs(1, 4, 6, 8, 16, seed=9, with_h0=False)
+    shifted = torch.empty(s.numel() + 1, device="cuda")[1:].view(s.shape)
+    shifted.copy_(s)
+    refuse(lambda: ssd_scan_kernel(shifted, decay), "a misaligned s")
+    print(f"[ssd] P*N=35 and a misaligned s: refused with ValueError; worst relative "
+          f"error {worst:.3e} (tolerance {SSD_TOL:g}, after bitwise equality)")
+    if worst > SSD_TOL:
+        fail(f"ssd scan relative error {worst:.3e} above {SSD_TOL:g}")
+    rows = {}
+    for b, nc in ((1, 4), (4, 8)):
+        s, decay, _ = ssd_inputs(b, nc, SSD_H, SSD_P, SSD_N, seed=3, with_h0=False)
+        t_k = median_ms(lambda: ssd_scan_kernel(s, decay))
+        t_p = median_ms(lambda: ssd_scan_ref(s, decay), iters=20)
+        b_ms, b_by, nbytes = ssd_bound_ms(b, nc, SSD_H, SSD_P, SSD_N, False)
+        rows[(b, nc)] = dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by, nbytes=nbytes,
+                             max_abs_err=errs[((b, nc, SSD_H, SSD_P, SSD_N), False)])
+        print(f"[ssd] time B={b} NC={nc} H={SSD_H} P={SSD_P} N={SSD_N}: kernel {t_k:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}, {nbytes} bytes, {b_ms / t_k:.1%} of it), plain "
+              f"{t_p:.4f} ms (device time, median of 25 / 20 launches); no PyTorch call "
+              f"computes this recurrence", flush=True)
+        del s, decay
+    ssd_scan_kernel.launches = 0           # comparison launches do not count
+    torch.cuda.empty_cache()
+    return rows
+
+
+JAMBA_LAYERS = 6          # layers 0-5 of Jamba's first period of 8
+JAMBA_PROMPT = 1000       # 4 chunks of 256, the last padded by 24
+JAMBA_SERVE_SEED = 149    # the first make_traffic seed whose burst makes the pool preempt
+
+
+def _reset_launches():
+    from repro_torch.launch.serve import KERNELS
+    for kern in KERNELS.values():
+        kern.launches = 0
+
+
+def phase_jamba_slice() -> dict:
+    """``serve_single`` at Jamba-v0.1 width, 6 layers, 1000-token prompt."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import KERNELS, build_parser, serve_single
+    from repro_torch.models import init_params
+    from repro_torch.models.mamba import mamba_decode
+    from repro_torch.models.transformer import layer_params
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    kinds = cfg.layer_kinds()
+    print(f"[jamba-slice] {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}, {cfg.num_experts} experts top-{cfg.top_k}, d_expert "
+          f"{cfg.d_expert}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, SSM state {cfg.ssm_state}, "
+          f"head dim {cfg.ssm_head_dim}, d_inner {cfg.d_inner} ({cfg.ssm_heads} SSM heads), "
+          f"conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}, {cfg.dtype}; layers {kinds}")
+    print(f"[jamba-slice] cut: num_layers {full.num_layers} -> {cfg.num_layers} (layers 0-5 "
+          f"of the first period): parameters are ~{cfg.param_count() * 2 / 1e9:.1f} GB at 6 "
+          f"layers and the Mixtral slice peaked at 3.1x its parameters, so 6 layers need "
+          f"~62 GB and 8 (~{dataclasses.replace(full, num_layers=8).param_count() * 2 / 1e9:.1f}"
+          f" GB of parameters) ~82 GB, past the card's 80 GB")
+    gc.collect()                # the Mixtral phases' tensors leave the card first
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[jamba-slice] random bf16 parameters from seed 0: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card", flush=True)
+    args = build_parser().parse_args(
+        ["--prompt-len", str(JAMBA_PROMPT), "--tokens", "8", "--predictor", "sep",
+         "--shadow", "int8", "--transport-precision", "fp32", "--workers", "8",
+         "--seed", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = serve_single(cfg, params, args)
+    every = {name: k.launches for name, k in KERNELS.items()}
+    print(f"[jamba-slice] serve_single took {time.perf_counter() - t0:.1f} s", flush=True)
+    toks = res["tokens"]
+    if tuple(toks.shape) != (1, args.tokens):
+        fail(f"jamba engine tokens have shape {tuple(toks.shape)}")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail("jamba engine tokens out of the vocabulary")
+    if not torch.equal(toks.cpu(), res["reference"].cpu()):
+        fail("jamba engine tokens differ from greedy_generate")
+    engine, reference = res["launches_engine"], res["launches_reference"]
+    for name in ("ssd_scan", "moe_ffn", "flash_decode"):
+        if engine[name] <= 0 or reference[name] <= 0:
+            fail(f"the jamba main path did not launch {name} on both sides")
+    eng = res["engine"]
+    steps = res["step_seconds"]
+    tpot = statistics.median(steps) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[jamba-slice] tokens {toks.cpu().tolist()[0]} == greedy_generate: True")
+    print(f"[jamba-slice] kernel launches on the main path (engine+shadow) {engine}; in the "
+          f"greedy_generate check {reference} (all {every})")
+    print(f"[jamba-slice] TPOT median {tpot:.3f} ms over {len(steps)} tokens; recall "
+          f"{eng_recall(res)}, loads {eng.slots.stats['loads']}, bytes_moved "
+          f"{eng.slots.bytes_moved}; peak device memory {peak:.2f} GB", flush=True)
+    parts = phase_breakdown(cfg, params, eng, res)
+    # one Mamba layer's decode step at B=1 (one block of 8 rows), and the
+    # part of it that pads the state to the block
+    li = kinds.index(("mamba", "dense"))
+    mixer = layer_params(cfg, params, li)["mixer"]
+    state = {"h": torch.randn((1, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                              device="cuda"),
+             "conv": torch.zeros((1, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                                 dtype=torch.bfloat16, device="cuda")}
+    x = torch.randn((1, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    mamba_ms = _median_ms(lambda: mamba_decode(cfg, mixer, x, state))
+    pad_ms = _median_ms(lambda: torch.cat([state["h"], state["h"].new_zeros((7,) + tuple(
+        state["h"].shape[1:]))]))
+    print(f"[jamba-breakdown] one Mamba decode layer at B=1 (8-row block): {mamba_ms:.3f} ms, "
+          f"of which padding h ({state['h'].numel() * 4} bytes a row) to 8 rows {pad_ms:.3f} "
+          f"ms; a token's loads take {parts['loads_per_token'] * parts['load_ms']:.3f} ms",
+          flush=True)
+    return {"launches": engine, "cfg": cfg, "params": params, "tpot_ms": tpot,
+            "peak_gb": peak}
+
+
+def phase_jamba_serve(cfg, params) -> dict:
+    """``serve_traffic`` at Jamba-v0.1 width: 4 burst requests through a
+    half-dense KV pool over the one attention layer."""
+    import math
+    import torch
+    from repro_torch.launch.serve import KERNELS, build_parser, serve_traffic
+    from repro_torch.serve import make_traffic
+    max_batch, page_tokens = 4, 16
+    reqs = make_traffic(cfg, 4, 0.0, prompt_len=1024, max_new=8, seed=JAMBA_SERVE_SEED)
+    window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+    pages = math.ceil(window / page_tokens) * max_batch // 2
+    gc.collect()                # the slice's engine and shadow leave the card first
+    torch.cuda.empty_cache()
+    print(f"[jamba-serve] {len(reqs)} requests at t=0 (make_traffic seed {JAMBA_SERVE_SEED}): "
+          f"prompts {[len(r.prompt) for r in reqs]}, budgets "
+          f"{[r.max_new_tokens for r in reqs]}; window {window} slots; KV pool {pages} pages x "
+          f"{page_tokens} slots = half the dense footprint of {max_batch} windows", flush=True)
+    args = build_parser().parse_args(
+        ["--requests", "4", "--arrival-rate", "0", "--prompt-len", "1024", "--tokens", "8",
+         "--max-batch", str(max_batch), "--compose", "overlap", "--predictor", "sep",
+         "--shadow", "int8", "--transport-precision", "fp32", "--workers", "8",
+         "--seed", str(JAMBA_SERVE_SEED), "--kv-pages", str(pages),
+         "--page-tokens", str(page_tokens)])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = serve_traffic(cfg, params, args)       # raises unless every request == solo
+    every = {name: k.launches for name, k in KERNELS.items()}
+    res = out["result"]
+    print(f"[jamba-serve] serve_traffic took {time.perf_counter() - t0:.1f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if len(res.outputs) != len(reqs):
+        fail("not every jamba request was served")
+    for r in reqs:
+        toks = res.outputs[r.rid]
+        if len(toks) != r.max_new_tokens or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab_size:
+            fail(f"jamba request {r.rid}: {len(toks)} tokens, out of budget or vocabulary")
+    st = res.kv_stats
+    if res.mean_batch <= 1.0:
+        fail(f"jamba mean batch {res.mean_batch:.2f}: no composed step")
+    if st["preemptions"] < 1 or st["resumes"] < 1:
+        fail(f"the half-dense pool did not preempt and resume ({st})")
+    for name in ("ssd_scan", "moe_ffn", "flash_decode"):
+        if out["launches_serving"][name] <= 0 or out["launches_reference"][name] <= 0:
+            fail(f"{name} did not launch on both the serving and the reference side")
+    print(f"[jamba-serve] tokens of all {len(reqs)} requests == solo greedy_generate; mean "
+          f"batch {res.mean_batch:.2f} over {len(res.steps)} composed steps; preemptions "
+          f"{st['preemptions']}, resumes {st['resumes']}, deferred admissions "
+          f"{st['deferred_admissions']}; kernel launches on the main path (engine+shadow) "
+          f"{out['launches_serving']}; in the solo greedy_generate check "
+          f"{out['launches_reference']} (all {every})", flush=True)
+    return {"launches": out["launches_serving"]}
 
 
 def eng_recall(res) -> str:
@@ -747,7 +1074,12 @@ def main():
     serve = phase_serve(moe.pop("cfg"), moe.pop("params"))
     torch.cuda.empty_cache()
     packed = phase_packed_slice()
+    torch.cuda.empty_cache()
+    srows = phase_ssd()
+    jamba = phase_jamba_slice()
+    jamba_serve = phase_jamba_serve(jamba.pop("cfg"), jamba.pop("params"))
     row, prow, frow = rows[(2, 1)], prows[("int8", 2, 1)], frows[(4, 144)]
+    srow = srows[(1, 4)]
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",
@@ -776,6 +1108,16 @@ def main():
         "bound_by": frow["bound_by"], "library_ms": frow["library_ms"],
         "shape": f"B=4 W=144 K={N_KV} G={GROUP} Hd={HEAD_DIM} bf16 (serve phase's composed "
                  "step)",
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:44",
+        "launches": jamba["launches"]["ssd_scan"], "max_abs_err": srow["max_abs_err"],
+        "ms": srow["ms"], "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
+        "bound_by": srow["bound_by"], "library_ms": None,
+        "shape": f"B=1 NC=4 H={SSD_H} P={SSD_P} N={SSD_N} fp32 (jamba-slice prefill of "
+                 f"{JAMBA_PROMPT} tokens); jamba-serve launches (engine+shadow): "
+                 f"{jamba_serve['launches']['ssd_scan']}",
     }]
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -46,7 +46,7 @@ from repro_torch.kernels.moe_gemm import (combine_topk, grouped_topk_contrib,
                                           grouped_topk_contrib_packed)
 from repro_torch.models.api import prefill
 from repro_torch.models.blocks import block_decode
-from repro_torch.models.config import MOE_FF, NO_FF, ModelConfig
+from repro_torch.models.config import ATTN, MOE_FF, NO_FF, ModelConfig
 from repro_torch.models.layers import apply_norm, embed
 from repro_torch.models.moe import route
 from repro_torch.models.transformer import (decode_logits, layer_params, tree_concat,
@@ -138,8 +138,8 @@ def wave_preds(preds_steps: List[Dict[int, np.ndarray]]) -> Dict[int, np.ndarray
 def concat_cache_lists(cache_lists: Sequence):
     """Join per-request per-layer caches along the batch axis.
 
-    Dense cache lists concatenate their KV tensors (every request was
-    prefilled with the same window).  Paged handles
+    Dense cache lists concatenate their KV tensors and Mamba states
+    (every request was prefilled with the same window).  Paged handles
     (``repro_torch.serve.kvpool.PagedRequestCache``) compose into a batch
     view instead: nothing is copied here, each layer gathers from the pool
     through the members' page tables when the step indexes it and
@@ -188,6 +188,9 @@ class ODMoEEngine:
             # the loop oracle reads full-width slot dicts
             raise ValueError("packed_slots requires the grouped wave path")
         if speculate > 1:
+            if any(mixer != ATTN for mixer, _ in cfg.layer_kinds()):
+                raise ValueError("speculate > 1 requires all-attention mixers (SSM "
+                                 "states cannot fork per wave row)")
             _not_ported("speculate > 1", "core/specdecode.py")
         if prefetch is not None or residency is not None:
             _not_ported("prefetch / residency", "core/prefetch.py")

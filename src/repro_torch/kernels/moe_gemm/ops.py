@@ -98,6 +98,28 @@ def _grouped_contrib_packed(h, parts, slot, gates, *, scheme: str):
     return _gather_gated(h, y, slot, gates)
 
 
+# Expert-rows per grouped-FFN call.  Every (padded) expert runs every row
+# of a call, and the kernel's workspace grows with experts x rows: about
+# 2.6 MB per expert-row at D=4096, F=14336, so a 1000-token prefill over
+# 16 experts in one call would ask for 43 GiB.  A longer row set runs in
+# blocks of ``MAX_EXPERT_ROWS // experts`` rows (64 for 16 experts, 128 for
+# 8, so a Mixtral prompt of up to 128 tokens is still one call), about
+# 2.7 GB of workspace at that width.  Each further block reads every
+# expert's weights again.  A row's bits depend on neither the kernel's nor
+# the plain version's row count, so the split changes no bit.
+MAX_EXPERT_ROWS = 1024
+
+
+def _row_chunks(fn, h, slot, gates, experts: int):
+    """``fn(h, slot, gates)`` over blocks of at most ``MAX_EXPERT_ROWS //
+    pow2(experts)`` rows."""
+    n, step = slot.shape[0], max(1, MAX_EXPERT_ROWS // _pow2(max(experts, 1)))
+    if n <= step:
+        return fn(h, slot, gates)
+    return torch.cat([fn(h[i:i + step], slot[i:i + step], gates[i:i + step])
+                      for i in range(0, n, step)])
+
+
 def _pad_rows(h, slot, gates):
     """Pad the row axis to its pow2 bucket (h/slot/gates only; padded
     rows are masked with slot -1)."""
@@ -121,12 +143,15 @@ def grouped_topk_contrib(h, w_gate, w_up, w_down, slot, gates):
     pair's value does not depend on which other experts or rows rode
     along, so wave partitioning never changes a request's arithmetic.
 
-    The row axis pads to its pow2 bucket here (cheap: h/slot/gates
-    only); the expert axis pads inside ``_grouped_contrib``.
+    Rows run in blocks of at most ``MAX_EXPERT_ROWS // experts``; a
+    block's row axis pads to its pow2 bucket (cheap: h/slot/gates only);
+    the expert axis pads inside ``_grouped_contrib``.
     """
-    n = slot.shape[0]
-    h, slot, gates = _pad_rows(h, slot, gates)
-    return _grouped_contrib(h, w_gate, w_up, w_down, slot, gates)[:n]
+    def block(h, slot, gates):
+        n = slot.shape[0]
+        h, slot, gates = _pad_rows(h, slot, gates)
+        return _grouped_contrib(h, w_gate, w_up, w_down, slot, gates)[:n]
+    return _row_chunks(block, h, slot, gates, w_gate.shape[0])
 
 
 def grouped_topk_contrib_packed(h, parts, slot, gates, *, scheme: str):
@@ -139,9 +164,12 @@ def grouped_topk_contrib_packed(h, parts, slot, gates, *, scheme: str):
     if scheme == "fp32":
         return grouped_topk_contrib(h, parts["w_gate"][0], parts["w_up"][0],
                                     parts["w_down"][0], slot, gates)
-    n = slot.shape[0]
-    h, slot, gates = _pad_rows(h, slot, gates)
-    return _grouped_contrib_packed(h, parts, slot, gates, scheme=scheme)[:n]
+
+    def block(h, slot, gates):
+        n = slot.shape[0]
+        h, slot, gates = _pad_rows(h, slot, gates)
+        return _grouped_contrib_packed(h, parts, slot, gates, scheme=scheme)[:n]
+    return _row_chunks(block, h, slot, gates, parts["w_gate"][0].shape[0])
 
 
 def combine_topk(contrib):

@@ -42,12 +42,24 @@ from repro_torch.core import (RTX3090_EDGE, ODMoEEngine, node_memory_report,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_decode import flash_decode_kernel
 from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_packed_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 from repro_torch.models import greedy_generate, init_params
 from repro_torch.quant import TieredPolicy, UniformPolicy
 from repro_torch.serve import (BatchComposer, KVPool, ServingLoop, WorkloadSpec,
                                dense_cache_footprint, make_trace, make_traffic)
 
 MODELLED = f"modelled ({RTX3090_EDGE.name} profile, not measured)"
+# every hand-written kernel a decode path can launch, by name
+KERNELS = {"moe_ffn": moe_ffn_kernel, "moe_ffn_packed": moe_ffn_packed_kernel,
+           "flash_decode": flash_decode_kernel, "ssd_scan": ssd_scan_kernel}
+
+
+def _launches() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _since(before: dict, after: dict) -> dict:
+    return {name: after[name] - before[name] for name in KERNELS}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,12 +165,11 @@ def serve_single(cfg, params, args) -> dict:
     """Decode one random prompt with the engine and with the dense
     reference; print the comparison and the engine's accounting.
     Returns the tokens, the engine, its trace, the transport policy and
-    the launches of each kernel on each side."""
+    the launches of each kernel on each side, by kernel name."""
     device = params["embed"]["table"].device
     batch = _prompt(cfg, args.prompt_len, args.seed, device)
     transport = build_transport(cfg, params, args)
-    kernels = (moe_ffn_kernel, moe_ffn_packed_kernel)
-    launches0 = [k.launches for k in kernels]
+    launches0 = _launches()
     eng = ODMoEEngine(cfg, params, n_workers=args.workers,
                       predictor=args.predictor, shadow_scheme=args.shadow,
                       seed=args.seed, transport=transport, device=device,
@@ -168,11 +179,10 @@ def serve_single(cfg, params, args) -> dict:
     toks, trace = eng.generate(batch, args.tokens)
     _sync(device)
     t_engine = time.perf_counter() - t0
-    launches1 = [k.launches for k in kernels]
+    launches1 = _launches()
     ref = greedy_generate(cfg, params, batch, args.tokens, transport=transport)
-    launches2 = [k.launches for k in kernels]
-    engine_launches = [b - a for a, b in zip(launches0, launches1)]
-    reference_launches = [b - a for a, b in zip(launches1, launches2)]
+    engine_launches = _since(launches0, launches1)
+    reference_launches = _since(launches1, _launches())
     exact = torch.equal(toks.cpu(), ref.cpu())
     print(f"  tokens == dense reference (same transport policy): {exact}")
     if not exact:
@@ -194,10 +204,8 @@ def serve_single(cfg, params, args) -> dict:
               f"mean {statistics.mean(steps) * 1e3:.3f} ms, median "
               f"{statistics.median(steps) * 1e3:.3f} ms over {len(steps)} tokens "
               f"(generate total {t_engine:.3f} s, prefill included)")
-    print(f"  moe_ffn kernel launches: engine+shadow {engine_launches[0]}, "
-          f"reference {reference_launches[0]}")
-    print(f"  moe_ffn_packed kernel launches: engine+shadow {engine_launches[1]}, "
-          f"reference {reference_launches[1]}")
+    print(f"  kernel launches: engine+shadow {engine_launches}, reference "
+          f"{reference_launches}")
     timings = simulate_odmoe(cfg, trace, eng.sched, RTX3090_EDGE, shadow_scheme=args.shadow,
                              predictor=args.predictor, transport=transport)
     modelled = timings.tokens_per_s if trace.records else None
@@ -213,10 +221,7 @@ def serve_single(cfg, params, args) -> dict:
         print(line)
     return {"tokens": toks, "reference": ref, "engine": eng, "trace": trace,
             "transport": transport,
-            "launches_engine": engine_launches[0],
-            "launches_reference": reference_launches[0],
-            "packed_launches_engine": engine_launches[1],
-            "packed_launches_reference": reference_launches[1],
+            "launches_engine": engine_launches, "launches_reference": reference_launches,
             "modelled_tok_s": modelled, "step_seconds": steps}
 
 
@@ -264,8 +269,7 @@ def serve_traffic(cfg, params, args) -> dict:
                                   "it waits for fleet/ (ROADMAP.md queue 1, item 5)")
     device = params["embed"]["table"].device
     transport = build_transport(cfg, params, args)
-    kernels = (moe_ffn_kernel, moe_ffn_packed_kernel, flash_decode_kernel)
-    launches0 = [k.launches for k in kernels]
+    launches0 = _launches()
     eng = ODMoEEngine(cfg, params, n_workers=args.workers, predictor=args.predictor,
                       shadow_scheme=args.shadow, seed=args.seed, transport=transport,
                       device=device, packed_slots=args.packed_slots)
@@ -276,9 +280,9 @@ def serve_traffic(cfg, params, args) -> dict:
                        composer=BatchComposer(args.max_batch, args.compose, kv_pool=kv_pool),
                        kv_pool=kv_pool, preempt=args.preempt, admit=args.admit)
     res = loop.run(reqs)
-    launches1 = [k.launches for k in kernels]
+    launches1 = _launches()
     check_bit_exact(cfg, params, reqs, res.outputs, transport)
-    launches2 = [k.launches for k in kernels]
+    launches2 = _launches()
     rep = res.timings.report()
     print(f"  requests: {rep['n_requests']}  tokens: {rep['total_tokens']}  mean batch: "
           f"{res.mean_batch:.2f}")
@@ -336,9 +340,7 @@ def serve_traffic(cfg, params, args) -> dict:
         vals = list(per_req.values())
         print(f"  wire bytes/request: mean {np.mean(vals) / 1e6:.2f} MB  max "
               f"{max(vals) / 1e6:.2f} MB")
-    names = ("moe_ffn", "moe_ffn_packed", "flash_decode")
-    serving = {n: b - a for n, a, b in zip(names, launches0, launches1)}
-    reference = {n: b - a for n, a, b in zip(names, launches1, launches2)}
+    serving, reference = _since(launches0, launches1), _since(launches1, launches2)
     print(f"  kernel launches: serving (engine+shadow) {serving}, reference {reference}")
     return {"result": res, "engine": eng, "kv_pool": kv_pool, "requests": reqs,
             "launches_serving": serving, "launches_reference": reference}

@@ -7,8 +7,9 @@
 
 ``state`` bundles the stacked KV caches and the next position.  MoE
 layers always run the ``grouped`` dispatch, the expert-FFN hot path
-shared with the OD-MoE engine.  Decoder-only attention models are
-ported; encoder-decoder, modality frontends and Mamba wait.
+shared with the OD-MoE engine.  Decoder-only models with attention,
+Mamba2 or hybrid layer patterns are ported; encoder-decoder and modality
+frontends wait.
 """
 from __future__ import annotations
 

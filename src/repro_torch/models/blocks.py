@@ -1,7 +1,9 @@
-"""Residual blocks: an attention mixer with a MoE or dense SwiGLU FFN.
+"""Residual blocks: an attention or Mamba2 mixer with a MoE FFN, a dense
+SwiGLU FFN or none.
 
 A block is described by ``kinds = (mixer_kind, ff_kind)`` from
-``ModelConfig.layer_kinds()``.  Mamba mixers wait (ROADMAP.md queue 1).
+``ModelConfig.layer_kinds()``.  Its decode cache is an attention layer's
+KV dict or a Mamba layer's ``{"h", "conv"}`` state.
 """
 from __future__ import annotations
 
@@ -12,24 +14,19 @@ import torch
 from repro_torch.rows import row_blocks
 
 from . import attention as attn_lib
+from . import mamba as mamba_lib
 from .config import ATTN, DENSE_FF, MOE_FF, NO_FF, ModelConfig
 from .layers import apply_norm, dense_init, swiglu_mlp
 from .moe import init_moe, moe_grouped
 
 
-def _require_attention(kinds) -> None:
-    if kinds[0] != ATTN:
-        raise NotImplementedError(
-            f"{kinds[0]!r} mixers are not ported yet (ROADMAP.md queue 1: "
-            "Mamba)")
-
-
 # --------------------------------------------------------------------- init
 def init_block(gen, cfg: ModelConfig, kinds: Tuple[str, str], dtype,
                device) -> dict:
-    _require_attention(kinds)
     ones = lambda: {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
-    p = {"norm1": ones(), "mixer": attn_lib.init_attention(gen, cfg, dtype, device)}
+    mixer = (attn_lib.init_attention(gen, cfg, dtype, device) if kinds[0] == ATTN
+             else mamba_lib.init_mamba(gen, cfg, dtype, device))
+    p = {"norm1": ones(), "mixer": mixer}
     ff = kinds[1]
     if ff == MOE_FF:
         p["norm2"] = ones()
@@ -41,6 +38,13 @@ def init_block(gen, cfg: ModelConfig, kinds: Tuple[str, str], dtype,
                    "w_up": dense_init(gen, (d, f), dtype, device=device),
                    "w_down": dense_init(gen, (f, d), dtype, device=device)}
     return p
+
+
+def init_block_cache(cfg: ModelConfig, kinds: Tuple[str, str], batch: int,
+                     max_len: int, dtype, device) -> dict:
+    if kinds[0] == ATTN:
+        return attn_lib.init_cache(cfg, batch, max_len, dtype, device)
+    return mamba_lib.init_ssm_state(cfg, batch, dtype, device)
 
 
 # ------------------------------------------------------------------- apply
@@ -60,12 +64,15 @@ def apply_ff(cfg: ModelConfig, params, kinds, x):
 def block_seq(cfg: ModelConfig, params, kinds, x, positions, *,
               make_cache: bool = False, max_cache_len: int = 0):
     """Full-sequence causal block.  Returns (x, cache-or-None)."""
-    _require_attention(kinds)
     h = apply_norm(cfg, x, params["norm1"])
-    out = attn_lib.attn_seq(cfg, params["mixer"], h, positions, causal=True,
-                            window=cfg.sliding_window)
-    cache = (attn_lib.seed_cache(cfg, params["mixer"], h, positions,
-                                 max_cache_len) if make_cache else None)
+    if kinds[0] == ATTN:
+        out = attn_lib.attn_seq(cfg, params["mixer"], h, positions, causal=True,
+                                window=cfg.sliding_window)
+        cache = (attn_lib.seed_cache(cfg, params["mixer"], h, positions,
+                                     max_cache_len) if make_cache else None)
+    else:
+        out, state = mamba_lib.mamba_seq(cfg, params["mixer"], h)
+        cache = state if make_cache else None
     x, _ = apply_ff(cfg, params, kinds, x + out)
     return x, cache
 
@@ -76,10 +83,13 @@ def block_decode(cfg: ModelConfig, params, kinds, x, cache, pos
 
     The norms, projections, router and dense FF run in fixed row blocks
     (``rows.row_blocks``); the experts run on the real rows only, through
-    the grouped FFN, whose per-row bits do not depend on the row count."""
-    _require_attention(kinds)
+    the grouped FFN, whose per-row bits do not depend on the row count.
+    A Mamba mixer ignores ``pos``."""
     h = row_blocks(lambda t: apply_norm(cfg, t, params["norm1"]), x)
-    out, cache = attn_lib.attn_decode(cfg, params["mixer"], h, cache, pos)
+    if kinds[0] == ATTN:
+        out, cache = attn_lib.attn_decode(cfg, params["mixer"], h, cache, pos)
+    else:
+        out, cache = mamba_lib.mamba_decode(cfg, params["mixer"], h, cache)
     x = x + out
     if kinds[1] == NO_FF:
         return x, cache, None

@@ -20,13 +20,17 @@ def row_blocks(fn, *xs):
     """Apply the row-local ``fn`` to ``xs`` (tensors sharing a leading row
     axis) in zero-padded blocks of exactly ``ROW_BLOCK`` rows, and return
     its outputs (a tensor, or a tuple of tensors or ``None``) for the real
-    rows."""
+    rows, in storage of their own: an output kept as state (a Mamba ``h``)
+    does not hold the padding rows alive."""
     n, r = xs[0].shape[0], ROW_BLOCK
     pad = (-n) % r
     if pad:
         xs = tuple(torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))]) for x in xs)
     outs = [fn(*(x[i:i + r] for x in xs)) for i in range(0, n + pad, r)]
+
+    def real(parts):
+        return torch.cat(list(parts[:-1]) + [parts[-1][:r - pad]])
+
     if isinstance(outs[0], tuple):
-        return tuple(None if parts[0] is None else torch.cat(parts)[:n]
-                     for parts in zip(*outs))
-    return torch.cat(outs)[:n]
+        return tuple(None if parts[0] is None else real(parts) for parts in zip(*outs))
+    return real(outs)

@@ -11,12 +11,15 @@ engine's device (``repro.serve.kvpool``):
     pages are swapped out to host memory byte for byte and restored on
     resume, so preemption is scheduling, never arithmetic.
   * ``PagedRequestCache`` / ``PagedCacheBatch``: stand-ins for the
-    engine's per-layer ``cache_list``.  Indexing ``caches[li]`` gathers
-    the members' pages into the dense ``(B, W, ...)`` view ``attn_decode``
-    reads; assigning ``caches[li] = new`` scatters the pages back.
-    Logical pages past a request's table read a permanent zero null page
-    (``pos = -1``), which is what the dense buffer's untouched tail holds,
-    so the gathered view equals the dense cache it replaces.
+    engine's per-layer ``cache_list``.  Indexing ``caches[li]`` of an
+    attention layer gathers the members' pages into the dense
+    ``(B, W, ...)`` view ``attn_decode`` reads; assigning ``caches[li] =
+    new`` scatters the pages back.  Logical pages past a request's table
+    read a permanent zero null page (``pos = -1``), which is what the
+    dense buffer's untouched tail holds, so the gathered view equals the
+    dense cache it replaces.  A Mamba layer's ``{"h", "conv"}`` state is
+    O(1) per request and stays dense in the handle's ``states``; a
+    preempted request's pages are swapped, its states stay where they are.
 
 Budget: one page holds ``page_tokens`` slots of one layer's K and V plus
 the ``pos`` lane; a page set spans every attention layer, and the pool's
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models.transformer import tree_concat, tree_map
 
 
 class PoolExhausted(RuntimeError):
@@ -53,14 +57,6 @@ class KVPoolStats:
         return dict(self.__dict__)
 
 
-def _attention_layers(cfg: ModelConfig) -> List[int]:
-    kinds = cfg.layer_kinds()
-    if any(mixer != ATTN for mixer, _ in kinds):
-        raise NotImplementedError("paged KV serves attention layers; Mamba states are "
-                                  "not ported (ROADMAP.md queue 1, item 8)")
-    return list(range(len(kinds)))
-
-
 class KVPool:
     """Fixed-size paged KV storage for every attention layer.
 
@@ -75,7 +71,11 @@ class KVPool:
         self.num_pages = num_pages
         self.page_tokens = page_tokens
         self.device = resolve_device(device)
-        self.attn_layers = _attention_layers(cfg)
+        self.attn_layers: List[int] = [i for i, (mixer, _) in enumerate(cfg.layer_kinds())
+                                       if mixer == ATTN]
+        if not self.attn_layers:
+            raise ValueError("KVPool needs at least one attention layer (pure-SSM "
+                             "states are O(1) and stay dense)")
         dt = getattr(torch, cfg.dtype)
         nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         n = num_pages + 1                      # + the null page
@@ -263,31 +263,44 @@ class KVPool:
     # ------------------------------------------------------------ adoption
     def adopt(self, rid: int, cache_list: List[dict], prompt_len: int) -> "PagedRequestCache":
         """Move a freshly prefilled request's KV (batch axis 1) into pool
-        pages and return the paged stand-in the serving loop carries."""
+        pages and return the paged stand-in the serving loop carries; the
+        other layers' states stay dense in the handle."""
         self.ensure(rid, prompt_len)
+        handle = PagedRequestCache(self, rid, len(cache_list))
         for li, cache in enumerate(cache_list):
-            self.scatter_layer(li, [rid], cache)
-        return PagedRequestCache(self, rid, len(cache_list))
+            if li in self.k:
+                self.scatter_layer(li, [rid], cache)
+            else:
+                handle.states[li] = cache
+        return handle
 
 
 class PagedRequestCache:
-    """One request's per-layer cache stand-in, read and written through its
-    page table with the ``caches[li]`` / ``caches[li] = x`` protocol of a
-    dense cache list, so the engine's decode path does not see paging."""
+    """One request's per-layer cache stand-in: attention layers live in the
+    pool (through the request's page table), anything else (Mamba state)
+    stays dense in ``states``.  It keeps the ``caches[li]`` /
+    ``caches[li] = x`` protocol of a dense cache list, so the engine's
+    decode path does not see paging."""
 
     def __init__(self, pool: KVPool, rid: int, n_layers: int):
         self.pool = pool
         self.rid = rid
         self.n_layers = n_layers
+        self.states: Dict[int, dict] = {}
 
     def __len__(self) -> int:
         return self.n_layers
 
     def __getitem__(self, li: int):
-        return self.pool.gather_layer(li, [self.rid])
+        if li in self.pool.k:
+            return self.pool.gather_layer(li, [self.rid])
+        return self.states[li]
 
     def __setitem__(self, li: int, value) -> None:
-        self.pool.scatter_layer(li, [self.rid], value)
+        if li in self.pool.k:
+            self.pool.scatter_layer(li, [self.rid], value)
+        else:
+            self.states[li] = value
 
     @staticmethod
     def compose(handles: Sequence["PagedRequestCache"]) -> "PagedCacheBatch":
@@ -296,9 +309,10 @@ class PagedRequestCache:
 
 
 class PagedCacheBatch:
-    """Composed-batch view over member handles: gathers and scatters every
-    layer through the members' page tables.  ``member(i)`` returns the
-    handle; the step's scatter already committed its pages."""
+    """Composed-batch view over member handles: gathers and scatters the
+    attention layers through the members' page tables, and concatenates
+    and splits the dense states of the others.  ``member(i)`` returns the
+    handle; the step's scatter already committed its pages and states."""
 
     def __init__(self, members: List[PagedRequestCache]):
         if not members:
@@ -312,10 +326,20 @@ class PagedCacheBatch:
         return self.n_layers
 
     def __getitem__(self, li: int):
-        return self.pool.gather_layer(li, self.rids)
+        if li in self.pool.k:
+            return self.pool.gather_layer(li, self.rids)
+        per = [m.states[li] for m in self.members]
+        return per[0] if len(per) == 1 else tree_concat(per)
 
     def __setitem__(self, li: int, value) -> None:
-        self.pool.scatter_layer(li, self.rids, value)
+        if li in self.pool.k:
+            self.pool.scatter_layer(li, self.rids, value)
+            return
+        # each member's state gets storage of its own, so a member that is
+        # preempted does not keep the whole composed batch's state alive
+        for i, m in enumerate(self.members):
+            m.states[li] = (value if len(self.members) == 1
+                            else tree_map(lambda a: a[i:i + 1].clone(), value))
 
     def member(self, i: int) -> PagedRequestCache:
         return self.members[i]
@@ -323,7 +347,8 @@ class PagedCacheBatch:
 
 def dense_cache_footprint(cfg: ModelConfig, cache_len: int, n_requests: int) -> int:
     """Bytes the dense serving path pins for ``n_requests`` live requests at
-    window ``cache_len``, the baseline a pool budget is sized against."""
+    window ``cache_len``, the baseline a pool budget is sized against.
+    Attention KV only, as in the reference: Mamba states are not counted."""
     itemsize = getattr(torch, cfg.dtype).itemsize
     nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     n_attn = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == ATTN)

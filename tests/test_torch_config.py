@@ -101,4 +101,4 @@ def test_unported_models_raise_not_implemented():
         tm.init_params(tconfigs.get_config("seamless-m4t-large-v2").reduced(),
                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(tm.ModelConfig(**_fields(tiny_ssm())), device="cpu")
+        tm.init_params(tconfigs.get_config("internvl2-26b").reduced(), device="cpu")

@@ -1,8 +1,9 @@
 """Card-only tests of the port: the hand-written CUDA grouped FFN, its
-packed-weight twin and flash-decode attention against their plain PyTorch
-versions (and the two FFNs against each other), their invariances and
-refusals, the engine on the card (full-width and packed-resident slots)
-and the serving loop on the card against solo decoding.
+packed-weight twin, flash-decode attention and the SSD inter-chunk scan
+against their plain PyTorch versions (and the two FFNs against each
+other), their invariances and refusals, the engine on the card
+(full-width and packed-resident slots) and the serving loop on the card
+against solo decoding, attention-only and hybrid.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -19,8 +20,10 @@ from repro_torch.kernels.moe_gemm import (grouped_topk_contrib, grouped_topk_con
                                           moe_ffn, moe_ffn_kernel, moe_ffn_packed,
                                           moe_ffn_packed_kernel, moe_ffn_packed_ref,
                                           moe_ffn_ref)
-from repro_torch.models import ModelConfig, greedy_generate, init_params
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_kernel, ssd_scan_ref
+from repro_torch.models import ModelConfig, decode_step, greedy_generate, init_params, prefill
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.transformer import tree_concat
 from repro_torch.quant import TieredPolicy, dequantize_tiles, device_layout, get_codec
 from repro_torch.serve import KVPool, ServingLoop, make_traffic
 
@@ -391,4 +394,129 @@ def test_served_tokens_equal_solo_greedy_on_the_card(dev, paged):
     for r in reqs:
         solo = greedy_generate(cfg, params, {"tokens": torch.as_tensor(r.prompt, device=dev)
                                              [None, :]}, r.max_new_tokens)
+        assert solo[0].cpu().tolist() == res.outputs[r.rid].tolist(), r.rid
+
+
+# ------------------------------------------------------------------ ssd scan
+SSD = [(1, 1, 128, 64, 128), (1, 4, 128, 64, 128), (4, 8, 128, 64, 128),
+       (2, 5, 3, 5, 12)]            # a head shorter than a block: ragged float4 tail
+
+
+def _ssd(dev, b, nc, h, p, n, with_h0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.randn((b, nc, h, p, n), generator=g, device=dev)
+    decay = torch.rand((b, nc, h), generator=g, device=dev) * 0.7 + 0.3
+    h0 = torch.randn((b, h, p, n), generator=g, device=dev) if with_h0 else None
+    return s, decay, h0
+
+
+@pytest.mark.parametrize("shape", SSD)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_kernel_bitwise_equals_plain_version(dev, shape, with_h0):
+    s, decay, h0 = _ssd(dev, *shape, with_h0)
+    k_in, k_last = ssd_scan_kernel(s, decay, h0)
+    p_in, p_last = ssd_scan_ref(s, decay, h0)
+    torch.cuda.synchronize()
+    assert k_in.shape == shape and k_last.shape == (shape[0],) + shape[2:]
+    assert torch.equal(k_in, p_in) and torch.equal(k_last, p_last)
+
+
+def test_ssd_kernel_rows_equal_their_own_launch(dev):
+    s, decay, h0 = _ssd(dev, 4, 6, 16, 8, 16, True, seed=1)
+    k_in, k_last = ssd_scan_kernel(s, decay, h0)
+    for i in range(4):
+        one_in, one_last = ssd_scan_kernel(s[i:i + 1].contiguous(), decay[i:i + 1].contiguous(),
+                                           h0[i:i + 1].contiguous())
+        assert torch.equal(one_in, k_in[i:i + 1]) and torch.equal(one_last, k_last[i:i + 1])
+
+
+def test_ssd_kernel_refuses_what_float4_cannot_move(dev):
+    """The kernel moves float4s: P*N not a multiple of 4 and a misaligned
+    pointer raise before any launch."""
+    before = ssd_scan_kernel.launches
+    s, decay, _ = _ssd(dev, 2, 5, 3, 5, 7, False)
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(s, decay)
+    s, decay, h0 = _ssd(dev, 1, 4, 6, 8, 16, True, seed=2)
+    shifted = torch.empty(s.numel() + 1, device=dev)[1:].view(s.shape)
+    shifted.copy_(s)
+    assert shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(shifted, decay)
+    h0_shifted = torch.empty(h0.numel() + 1, device=dev)[1:].view(h0.shape)
+    h0_shifted.copy_(h0)
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(s, decay, h0_shifted)
+    assert ssd_scan_kernel.launches == before
+
+
+def test_ssd_kernel_counts_launches_and_ssd_scan_routes_to_it(dev):
+    s, decay, _ = _ssd(dev, 1, 3, 4, 8, 8, False)
+    before = ssd_scan_kernel.launches
+    h_in, h_last = ssd_scan(s, decay)
+    assert ssd_scan_kernel.launches == before + 1
+    assert torch.equal(h_last, ssd_scan_ref(s, decay)[1])
+    ssd_scan(s.cpu(), decay.cpu())                     # the host's plain path
+    assert ssd_scan_kernel.launches == before + 1
+
+
+def test_ssd_kernel_refuses_bad_inputs(dev):
+    s, decay, h0 = _ssd(dev, 2, 3, 4, 8, 8, True)
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(s.cpu(), decay.cpu())
+    with pytest.raises(TypeError):
+        ssd_scan_kernel(s.double(), decay)
+    with pytest.raises(TypeError):
+        ssd_scan_kernel(s, decay.half())
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(s.transpose(3, 4).contiguous().transpose(3, 4), decay)
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(s, decay[:, :2])
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(s, decay, h0[:1])
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(s[:, :0], decay[:, :0])
+
+
+HYBRID = ModelConfig(name="t-hybrid", family="hybrid", num_layers=8, d_model=64, num_heads=4,
+                     num_kv_heads=2, d_ff=128, d_expert=96, vocab_size=97, num_experts=8,
+                     top_k=2, moe_every=2, moe_offset=1, ssm_state=16, ssm_head_dim=16,
+                     ssm_chunk=8, attn_every=8, attn_offset=4)
+
+
+def test_hybrid_composed_decode_rows_equal_solo_rows_on_the_card(dev):
+    """Mamba and attention decode run their row-local work in fixed row
+    blocks: a composed step gives each row the bits of its solo step."""
+    params = init_params(HYBRID, seed=3, device=dev)
+    prompts = [torch.randint(0, 97, (1, n), generator=torch.Generator().manual_seed(n),
+                             dtype=torch.int32).to(dev) for n in (9, 21, 14)]
+    before = ssd_scan_kernel.launches
+    states = [prefill(HYBRID, params, {"tokens": t}, 32)[1] for t in prompts]
+    assert ssd_scan_kernel.launches > before
+    token = torch.tensor([5, 17, 40], dtype=torch.int32, device=dev)
+    solo = [decode_step(HYBRID, params, token[i:i + 1], st)[0] for i, st in enumerate(states)]
+    pattern, _ = HYBRID.pattern()            # caches: (R, B, ...) per pattern position
+    composed = {"caches": tuple(tree_concat([st["caches"][p] for st in states], dim=1)
+                                for p in range(len(pattern))),
+                "pos": torch.cat([st["pos"] for st in states])}
+    logits, _ = decode_step(HYBRID, params, token, composed)
+    for i in range(3):
+        assert torch.equal(logits[i:i + 1], solo[i]), i
+
+
+def test_hybrid_served_tokens_equal_solo_greedy_on_the_card(dev):
+    """A hybrid model through a paged pool that preempts: every request's
+    tokens equal its solo decode on the card."""
+    params = init_params(HYBRID, seed=5, device=dev)
+    reqs = make_traffic(HYBRID, 5, 0.0, prompt_len=20, max_new=6, seed=1)
+    window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+    pool = KVPool(HYBRID, num_pages=-(-window // 4) * 4 // 2, page_tokens=4, device=dev)
+    before = ssd_scan_kernel.launches
+    eng = ODMoEEngine(HYBRID, params, predictor="sep", device=dev)
+    res = ServingLoop(eng, max_batch=4, kv_pool=pool).run(reqs)
+    assert ssd_scan_kernel.launches > before
+    assert res.mean_batch > 1 and res.kv_stats["preemptions"] >= 1
+    for r in reqs:
+        solo = greedy_generate(HYBRID, params, {"tokens": torch.as_tensor(r.prompt, device=dev)
+                                                [None, :]}, r.max_new_tokens)
         assert solo[0].cpu().tolist() == res.outputs[r.rid].tolist(), r.rid

@@ -100,6 +100,22 @@ def test_pair_values_do_not_depend_on_what_rode_along():
         assert torch.equal(one[0, rank], full[0, rank])
 
 
+@pytest.mark.parametrize("budget", [4, 16, 64])
+def test_row_blocks_change_no_bit(monkeypatch, budget):
+    """A long row set runs in blocks of ``MAX_EXPERT_ROWS // experts``
+    rows (1, 4 and 16 rows for 4 experts here); the contributions equal
+    those of one call, bit for bit, and still match JAX."""
+    from repro_torch.kernels.moe_gemm import ops
+    arrs = _contrib_inputs(11, 37, 2, 4)
+    args = tuple(map(torch.from_numpy, arrs))
+    whole = grouped_topk_contrib(*args)
+    monkeypatch.setattr(ops, "MAX_EXPERT_ROWS", budget)
+    blocked = grouped_topk_contrib(*args)
+    assert torch.equal(blocked, whole)
+    np.testing.assert_allclose(blocked.numpy(), np.asarray(jcontrib(*map(jnp.asarray, arrs))),
+                               **TOL)
+
+
 def test_combine_sums_in_rank_order():
     """(1e8 + 1) - 1e8 is 0 in fp32, where (1e8 - 1e8) + 1 would be 1."""
     contrib = torch.tensor([[[1e8], [1.0], [-1e8]]], dtype=torch.float32)
