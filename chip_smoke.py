@@ -6,12 +6,13 @@
 Phases, each of which ends the run with a non-zero exit on failure:
 
 1. card    — require CUDA; print ``nvidia-smi`` name and power limit.
-2. build   — compile the four hand-written kernels with nvcc, in
+2. build   — compile the five hand-written kernels with nvcc, in
              parallel: the grouped expert FFN
              (``src/repro_torch/csrc/moe_ffn.cu``), its packed-weight twin
              (``moe_ffn_packed.cu``), flash-decode attention
-             (``flash_decode.cu``) and the SSD inter-chunk scan
-             (``ssd_scan.cu``); print ptxas's register and spill lines.
+             (``flash_decode.cu``), the SSD inter-chunk scan
+             (``ssd_scan.cu``) and the w8a16 matmul (``int8_matmul.cu``);
+             print ptxas's register and spill lines.
 3. kernel  — hold the grouped FFN against its plain PyTorch version at the
              decode and prefill paths' shapes (D=4096, F=14336, bf16
              weights, E in {1,2,8,16}, C in {1,2,16,64}), check that
@@ -49,6 +50,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
              mean batch must exceed 1, the pool must preempt and resume at
              least once, and flash-decode and the expert kernel must have
              launched on the serving and the reference side.
+8a. prefetch — engines on the slice's parameters (prompt 16, 8 tokens),
+             sharing one expert store: no prefetch, ``prefetch="sync"``,
+             ``"thread"``, a ``ChaosExecutor`` for seeds 1 and 2, and
+             ``"sync"`` and ``"thread"`` with ``residency="lru"`` and with
+             ``"gate"``.  Every engine's tokens equal ``greedy_generate``;
+             every executor's load events and bytes equal those of the
+             first engine of its residency (no prefetch, or sync).  Prints
+             each run's TPOT median, prefetch counters, peak memory while
+             decoding, and the host's copy rate; one more decode of the
+             first three under ``torch.profiler`` gives copy/kernel overlap.
+8b. prefetch-serve — the serve phase's traffic through ``serve_traffic``
+             with ``prefetch="thread"`` and ``residency="lru"``: every
+             request equals its solo decode; composed-step times by B beside
+             the synchronous serve phase's, the prefetch counters, and the
+             peak memory while serving beside the serve phase's.
 9. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
              width in fp32 (2 layers), transport int8, nf4 and tiered in
              turn: engine tokens equal ``greedy_generate`` under the same
@@ -73,6 +89,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
              windows over the one attention layer; every request equals its
              solo ``greedy_generate``, the pool preempts and resumes, the
              three kernels launched on both sides.
+13. int8   — the w8a16 matmul kernel against its plain version at the JAX
+             tests' shapes (32x128x64, 64x256x96, ragged 13x70x33) and the
+             Mixtral-8x7B expert matrices (4096x14336, 14336x4096) with M in
+             {1, 4, 8}, fp32 and bf16 x; repeated launches bitwise equal;
+             timed at M=4 beside its bytes bound, its plain version and
+             cuBLAS on weights dequantized beforehand (fp32 and bf16).  No
+             path of the port calls it, as in the JAX package.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed.  The script imports nothing of JAX or of the
@@ -95,6 +118,7 @@ FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
 D_MODEL, D_EXPERT = 4096, 14336
 N_KV, GROUP, HEAD_DIM = 8, 4, 128  # Mixtral-8x7B attention: 8 kv heads, 32 query heads
 KERNEL_TOL = 1e-4                 # max|k - p| / max|p|: fp32 sums in two orders
+INT8_TOL = 1e-5                   # the same for the w8a16 matmul (scaled after its sum)
 SSD_TOL = 1e-6                    # the scan's second check, after bitwise equality
 
 
@@ -123,11 +147,13 @@ def phase_card():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_decode import kernel as flash
+    from repro_torch.kernels.int8_matmul import kernel as int8
     from repro_torch.kernels.moe_gemm import kernel, packed
     from repro_torch.kernels.ssd_scan import kernel as ssd
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:        # one nvcc per source, together
-        infos = list(pool.map(lambda m: m.LIBRARY.build(), (kernel, packed, flash, ssd)))
+    mods = (kernel, packed, flash, ssd, int8)
+    with ThreadPoolExecutor(len(mods)) as pool:        # one nvcc per source, together
+        infos = list(pool.map(lambda m: m.LIBRARY.build(), mods))
     for info in infos:
         print(f"[build] {info['path']} built in {info['seconds']:.2f} s", flush=True)
         for line in info["report"].splitlines():
@@ -645,8 +671,9 @@ def phase_serve(cfg, params) -> dict:
                     for k in launches}:
         fail(f"launch counts {launches} are not the serving and reference counts summed")
     res = out["result"]
+    peak, built = out["serving_peak_bytes"] / 1e9, out["build_peak_bytes"] / 1e9
     print(f"[serve] serve_traffic took {time.perf_counter() - t0:.1f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+          f"while building the engine and pool {built:.2f} GB, while serving {peak:.2f} GB")
     if len(res.outputs) != len(reqs):
         fail("not every request was served")
     for r in reqs:
@@ -669,7 +696,276 @@ def phase_serve(cfg, params) -> dict:
           f"{st['deferred_admissions']}; kernel launches on the main path (engine+shadow) "
           f"{out['launches_serving']}; in the solo greedy_generate check "
           f"{out['launches_reference']} (all {launches})")
-    return {"launches": out["launches_serving"]}
+    return {"launches": out["launches_serving"], "steps_by_b": steps_by_b(res),
+            "peak_gb": peak, "built_gb": built}
+
+
+def steps_by_b(res) -> dict:
+    """Median measured composed-step time (ms) and count, by batch size."""
+    import statistics
+    by_b = {}
+    for st in res.steps:
+        by_b.setdefault(len(st.request_ids), []).append(st.wall_s * 1e3)
+    return {b: (statistics.median(ts), len(ts)) for b, ts in sorted(by_b.items())}
+
+
+def fmt_steps(by_b: dict) -> str:
+    return " / ".join(f"B={b} {ms:.3f} ms (n={n})" for b, (ms, n) in by_b.items())
+
+
+def host_copy_rate(store, layer) -> tuple:
+    """One expert's pinned host -> card load, alone: (ms, GB/s)."""
+    ms = _median_ms(lambda: store.unpack_shard(layer, 0))
+    return ms, store.packed_bytes(layer, 0) / ms / 1e6
+
+
+# (name, prefetch, residency), an int being a ChaosExecutor seed.  The
+# first engine of each residency group sets the load events and bytes that
+# the others in the group are held to.
+PREFETCH_RUNS = (
+    ("none", None, None), ("sync", "sync", None), ("thread", "thread", None),
+    ("chaos-1", 1, None), ("chaos-2", 2, None),
+    ("sync+lru", "sync", "lru"), ("thread+lru", "thread", "lru"),
+    ("sync+gate", "sync", "gate"), ("thread+gate", "thread", "gate"))
+
+
+def phase_prefetch(cfg, params) -> dict:
+    """The slice's engine with each executor and residency policy: tokens
+    equal greedy_generate, and every executor's load events and bytes equal
+    the first engine's of the same residency policy.  The engines share one
+    expert store, which packs the experts once."""
+    import statistics
+    import torch
+    from repro_torch.core import ChaosExecutor, ExpertStore, ODMoEEngine
+    from repro_torch.launch.serve import KERNELS
+    from repro_torch.models import greedy_generate
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 16), generator=gen,
+                                     dtype=torch.int32).cuda()}
+    ref = greedy_generate(cfg, params, batch, 8)
+    store = ExpertStore(cfg, params)
+    copy_ms, copy_gbps = host_copy_rate(store, store.moe_layers[0])
+    print(f"[prefetch] host copy rate: one expert ({store.packed_bytes(store.moe_layers[0], 0)} "
+          f"bytes, pinned host -> card) {copy_ms:.3f} ms = {copy_gbps:.2f} GB/s", flush=True)
+    out, base = {"runs": {}, "copy_gbps": copy_gbps, "launches": {}}, {}
+    for name, prefetch, residency in PREFETCH_RUNS:
+        executor = ChaosExecutor(prefetch) if isinstance(prefetch, int) else prefetch
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        eng = ODMoEEngine(cfg, params, n_workers=8, predictor="sep", shadow_scheme="int8",
+                          device="cuda", prefetch=executor, residency=residency, store=store)
+        built = torch.cuda.max_memory_allocated() / 1e9     # while the engine was built
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated() / 1e9
+        toks, trace = eng.generate(batch, 8)
+        eng.close()
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not torch.equal(toks, ref):
+            fail(f"prefetch run {name}: engine tokens differ from greedy_generate")
+        if launches["moe_ffn"] <= 0:
+            fail(f"prefetch run {name}: the engine did not launch moe_ffn")
+        events = [(e.token, e.layer, e.expert, e.worker, e.predicted, e.bytes)
+                  for e in eng.slots.events]
+        if residency not in base:
+            base[residency] = (events, eng.slots.bytes_moved)
+        elif (events, eng.slots.bytes_moved) != base[residency]:
+            fail(f"prefetch run {name}: load events or bytes differ from those of the first "
+                 f"engine with residency {residency}")
+        rep = eng.prefetch_report()
+        tpot = statistics.median(r.seconds for r in trace.records) * 1e3
+        out["runs"][name] = dict(tpot_ms=tpot, peak_gb=peak, built_gb=built, report=rep)
+        out["launches"] = launches
+        counters = {k: rep.get(f"prefetch_{k}") for k in ("prefetched", "inline",
+                                                          "demand_fetches", "stale")}
+        print(f"[prefetch] {name:11s}: tokens == greedy_generate, events/bytes == first: "
+              f"True; TPOT median {tpot:.3f} ms; loads {eng.slots.stats['loads']}, "
+              f"bytes_moved {eng.slots.bytes_moved}; prefetch {counters}; rehits "
+              f"{rep['residency_rehits']}, rehit_rate {rep['rehit_rate']:.4f}; device memory: "
+              f"peak while building the engine {built:.2f} GB, before decoding {resting:.2f} GB, "
+              f"peak while decoding {peak:.2f} GB; moe_ffn launches {launches['moe_ffn']}",
+              flush=True)
+        if name in ("none", "sync", "thread"):
+            copy_overlap_profile(name, eng, batch)
+            eng.close()
+        del eng, toks, trace
+    del store
+    return out
+
+
+def _union(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _length(spans) -> float:
+    return sum(b - a for a, b in spans)
+
+
+def _intersection(xs, ys) -> float:
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def copy_overlap_profile(name, eng, batch) -> None:
+    """One more decode of the engine under ``torch.profiler``: how long the
+    card copied host -> device, how long it ran kernels, how much of the
+    copying overlapped kernels, and its idle share over the decode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.generate(batch, 8)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print(f"[prefetch] {name}: torch.profiler recorded no device activity")
+        return
+    copies = _union([(e.time_range.start, e.time_range.end) for e in dev
+                     if "HtoD" in e.name])
+    kernels = _union([(e.time_range.start, e.time_range.end) for e in dev
+                      if not e.name.startswith(("Memcpy", "Memset"))])
+    busy = _union([(e.time_range.start, e.time_range.end) for e in dev])
+    span = max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)
+    print(f"[prefetch] {name}: profile of one more decode (prefill included, torch.profiler): "
+          f"host->device copies {_length(copies) / 1e3:.3f} ms, kernels "
+          f"{_length(kernels) / 1e3:.3f} ms, copies overlapping kernels "
+          f"{_intersection(copies, kernels) / 1e3:.3f} ms; device idle "
+          f"{1 - _length(busy) / span:.1%} of {span / 1e3:.3f} ms", flush=True)
+
+
+def phase_prefetch_serve(cfg, params, sync_steps: dict) -> dict:
+    """The serve phase's traffic with a threaded prefetch executor and LRU
+    residency."""
+    import math
+    import torch
+    from repro_torch.launch.serve import KERNELS, build_parser, serve_traffic
+    from repro_torch.serve import make_traffic
+    max_batch, page_tokens = 4, 16
+    reqs = make_traffic(cfg, 8, 0.0, prompt_len=128, max_new=8, seed=SERVE_SEED)
+    window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+    pages = math.ceil(window / page_tokens) * max_batch // 2
+    args = build_parser().parse_args(
+        ["--requests", "8", "--arrival-rate", "0", "--prompt-len", "128", "--tokens", "8",
+         "--max-batch", str(max_batch), "--compose", "overlap", "--predictor", "sep",
+         "--shadow", "int8", "--transport-precision", "fp32", "--workers", "8",
+         "--seed", str(SERVE_SEED), "--kv-pages", str(pages),
+         "--page-tokens", str(page_tokens)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = serve_traffic(cfg, params, args, prefetch="thread", residency="lru")
+    every = {name: k.launches for name, k in KERNELS.items()}
+    res = out["result"]
+    peak, built = out["serving_peak_bytes"] / 1e9, out["build_peak_bytes"] / 1e9
+    for name in ("moe_ffn", "flash_decode"):
+        if out["launches_serving"][name] <= 0:
+            fail(f"prefetch-serve: {name} did not launch on the serving side")
+    st = res.prefetch_stats
+    if st is None or st["executor"] != "thread" or st["residency"] != "lru":
+        fail(f"prefetch-serve: no threaded prefetch report ({st})")
+    by_b = steps_by_b(res)
+    print(f"[prefetch-serve] serve_traffic took {time.perf_counter() - t0:.1f} s; tokens of "
+          f"all {len(reqs)} requests == solo greedy_generate; mean batch {res.mean_batch:.2f}; "
+          f"peak device memory while building the engine and pool {built:.2f} GB, while "
+          f"serving {peak:.2f} GB; launches (engine+shadow) "
+          f"{out['launches_serving']} (all {every})")
+    print(f"[prefetch-serve] composed step (thread+lru): {fmt_steps(by_b)}; synchronous serve "
+          f"phase of this run: {fmt_steps(sync_steps)}")
+    print(f"[prefetch-serve] prefetch_stats {st}", flush=True)
+    return {"steps_by_b": by_b, "peak_gb": peak, "built_gb": built, "stats": st,
+            "launches": out["launches_serving"]}
+
+
+INT8_SWEEP = ((32, 128, 64), (64, 256, 96), (13, 70, 33))   # tests/test_kernels.py's shapes
+
+
+def int8_inputs(m, k, n, dtype, seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    sc = torch.rand((n,), generator=gen, device="cuda") * 9e-3 + 1e-3
+    return x, wq, sc
+
+
+def phase_int8() -> dict:
+    """The w8a16 matmul kernel against its plain version, bitwise repeatable,
+    then timed at M=4 on the Mixtral expert matrices."""
+    import torch
+    from repro_torch.kernels.int8_matmul import int8_matmul_kernel, int8_matmul_ref
+    from repro_torch.kernels.int8_matmul import kernel as int8_lib
+    shapes = list(INT8_SWEEP) + [(m, k, n) for m in (1, 4, 8)
+                                 for k, n in ((D_MODEL, D_EXPERT), (D_EXPERT, D_MODEL))]
+    worst, errs = 0.0, {}
+    for m, k, n in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wq, sc = int8_inputs(m, k, n, dtype, seed=m + k + n)
+            got = int8_matmul_kernel(x, wq, sc)
+            want = int8_matmul_ref(x, wq, sc)
+            again = int8_matmul_kernel(x, wq, sc)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"int8 matmul output not finite at {(m, k, n)} {dtype}")
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            worst = max(worst, rel)
+            errs[(m, k, n, dtype)] = err
+            if rel > INT8_TOL:
+                fail(f"int8 matmul disagrees with its plain version at {(m, k, n)} {dtype}: "
+                     f"{rel:.3e}")
+            if not torch.equal(got, again):
+                fail(f"int8 matmul repeated launches differ at {(m, k, n)} {dtype}")
+        print(f"[int8] M={m} K={k} N={n}: max|k-p| {errs[(m, k, n, torch.float32)]:.3e} (fp32 "
+              f"x) / {errs[(m, k, n, torch.bfloat16)]:.3e} (bf16 x), K split "
+              f"{int8_lib.LIBRARY.lib.int8_matmul_splits(m, n, k)} way(s); repeated launch "
+              f"bitwise equal", flush=True)
+    print(f"[int8] worst max|k-p|/max|p| {worst:.3e} (tolerance {INT8_TOL:g})")
+    rows = {}
+    for k, n in ((D_MODEL, D_EXPERT), (D_EXPERT, D_MODEL)):
+        m = 4
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wq, sc = int8_inputs(m, k, n, dtype, seed=1)
+            w32 = wq.float() * sc[None, :]
+            w16 = w32.to(torch.bfloat16)
+            x32, x16 = x.float(), x.to(torch.bfloat16)
+            t_k = median_ms(lambda: int8_matmul_kernel(x, wq, sc))
+            t_p = median_ms(lambda: int8_matmul_ref(x, wq, sc), iters=20)
+            t_l32 = median_ms(lambda: x32 @ w32)
+            t_l16 = median_ms(lambda: x16 @ w16)
+            nbytes = k * n + m * k * x.element_size() + 4 * n + 4 * m * n
+            ops = 2 * m * k * n + m * n
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+            b_ms = max(t_bytes, t_ops) * 1e3
+            b_by = "bytes" if t_bytes >= t_ops else "operations"
+            rows[(k, n, dtype)] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                                       yardstick_fp32_ms=t_l32, yardstick_bf16_ms=t_l16,
+                                       max_abs_err=errs[(m, k, n, dtype)], nbytes=nbytes)
+            print(f"[int8] time M={m} K={k} N={n} {str(dtype)[6:]} x: kernel {t_k:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}, {nbytes} bytes, {b_ms / t_k:.1%} of it), "
+                  f"plain {t_p:.4f} ms, cuBLAS on dequantized weights {t_l32:.4f} ms (fp32) / "
+                  f"{t_l16:.4f} ms (bf16) (device time, median of 25 / 20 / 25 launches)",
+                  flush=True)
+            del x, wq, sc, w32, w16, x32, x16
+    int8_matmul_kernel.launches = 0        # comparison launches do not count
+    torch.cuda.empty_cache()
+    return rows
 
 
 # Per-worker bytes a packed-resident slot must hold at Mixtral-8x7B width:
@@ -1030,8 +1326,10 @@ def phase_jamba_serve(cfg, params) -> dict:
     out = serve_traffic(cfg, params, args)       # raises unless every request == solo
     every = {name: k.launches for name, k in KERNELS.items()}
     res = out["result"]
+    peak, built = out["serving_peak_bytes"] / 1e9, out["build_peak_bytes"] / 1e9
     print(f"[jamba-serve] serve_traffic took {time.perf_counter() - t0:.1f} s; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+          f"memory while building the engine and pool {built:.2f} GB, while serving "
+          f"{peak:.2f} GB")
     if len(res.outputs) != len(reqs):
         fail("not every jamba request was served")
     for r in reqs:
@@ -1053,7 +1351,7 @@ def phase_jamba_serve(cfg, params) -> dict:
           f"{st['deferred_admissions']}; kernel launches on the main path (engine+shadow) "
           f"{out['launches_serving']}; in the solo greedy_generate check "
           f"{out['launches_reference']} (all {every})", flush=True)
-    return {"launches": out["launches_serving"]}
+    return {"launches": out["launches_serving"], "peak_gb": peak, "built_gb": built}
 
 
 def eng_recall(res) -> str:
@@ -1071,15 +1369,29 @@ def main():
     frows = phase_flash()
     phase_small()
     moe = phase_slice()
-    serve = phase_serve(moe.pop("cfg"), moe.pop("params"))
+    cfg, params = moe.pop("cfg"), moe.pop("params")
+    serve = phase_serve(cfg, params)
+    prefetch = phase_prefetch(cfg, params)
+    pserve = phase_prefetch_serve(cfg, params, serve["steps_by_b"])
+    del cfg, params
+    gc.collect()
     torch.cuda.empty_cache()
     packed = phase_packed_slice()
     torch.cuda.empty_cache()
     srows = phase_ssd()
     jamba = phase_jamba_slice()
     jamba_serve = phase_jamba_serve(jamba.pop("cfg"), jamba.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    irows = phase_int8()
     row, prow, frow = rows[(2, 1)], prows[("int8", 2, 1)], frows[(4, 144)]
-    srow = srows[(1, 4)]
+    srow, irow = srows[(1, 4)], irows[(D_MODEL, D_EXPERT, torch.float32)]
+    print("[memory] peak device memory while serving (while building the engine and pool): "
+          + ", ".join(f"{n} {r['peak_gb']:.2f} GB ({r['built_gb']:.2f} GB)" for n, r in
+                      (("serve", serve), ("prefetch-serve", pserve),
+                       ("jamba-serve", jamba_serve)))
+          + "; prefetch runs, peak while decoding: "
+          + ", ".join(f"{n} {r['peak_gb']:.2f}" for n, r in prefetch["runs"].items()) + " GB")
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",
@@ -1118,6 +1430,18 @@ def main():
         "shape": f"B=1 NC=4 H={SSD_H} P={SSD_P} N={SSD_N} fp32 (jamba-slice prefill of "
                  f"{JAMBA_PROMPT} tokens); jamba-serve launches (engine+shadow): "
                  f"{jamba_serve['launches']['ssd_scan']}",
+    }, {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul/kernel.py:56",
+        "launches": prefetch["launches"]["int8_matmul"], "max_abs_err": irow["max_abs_err"],
+        "ms": irow["ms"], "plain_ms": irow["plain_ms"], "bound_ms": irow["bound_ms"],
+        "bound_by": irow["bound_by"], "library_ms": None,
+        "yardstick_ms": irow["yardstick_fp32_ms"],
+        "yardstick": "cuBLAS fp32 x @ w on weights dequantized beforehand (no PyTorch call "
+                     "dequantizes inside its product)",
+        "shape": f"M=4 K={D_MODEL} N={D_EXPERT}, fp32 x, int8 w, fp32 scale; on no path of "
+                 f"the port, as in the JAX package (launches counted on the prefetch runs)",
     }]
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,16 +2,21 @@
 on-demand expert loading engine (single stream and the request-level API
 the serving loop composes), worker-group scheduling, the expert store
 and worker slots (full-width or packed-resident), prefill assignment and
-the decode and serving timing model."""
+the decode and serving timing model, and async expert prefetch with
+opportunistic residency."""
 from .align import AlignmentPolicy, kv_bytes_per_token, token_bytes
 from .engine import (LayerRecord, ODMoEEngine, TokenRecord, Trace, concat_cache_lists,
                      slice_cache_list, wave_preds)
 from .predictor import (FrequencyPredictor, GateExtrapolator, RandomPredictor,
-                        SEPShadow, concat_shadow_states, moe_layer_indices, recall_counts,
-                        slice_shadow_state, topk_to_layer_dict)
+                        SEPShadow, concat_shadow_states, layers_within_horizon,
+                        moe_layer_indices, recall_counts, slice_shadow_state,
+                        topk_to_layer_dict)
+from .prefetch import (ChaosExecutor, GateStatsResidency, LRUResidency, PrefetchExecutor,
+                       ResidencyPolicy, SyncExecutor, ThreadedExecutor, make_executor,
+                       resolve_residency)
 from .prefill import experts_activated, prefill_expert_assignment, split_minibatches
 from .schedule import GroupSchedule
-from .store import DeviceShard, ExpertStore, LoadEvent, WorkerSlots
+from .store import DeviceShard, ExpertStore, FetchedShard, LoadEvent, WorkerSlots
 from .timing import (RTX3090_EDGE, DecodeClock, HardwareProfile, ODMoETimings,
                      ServingTimings, degraded_tpot_report, embedding_payload, latency_percentiles,
                      layer_bytes, node_memory_report, poisson_arrivals, simulate_cached,
@@ -21,9 +26,11 @@ __all__ = [
     "AlignmentPolicy", "kv_bytes_per_token", "token_bytes", "LayerRecord",
     "ODMoEEngine", "TokenRecord", "Trace", "concat_cache_lists", "slice_cache_list",
     "wave_preds", "FrequencyPredictor", "GateExtrapolator", "RandomPredictor", "SEPShadow",
-    "concat_shadow_states", "moe_layer_indices", "recall_counts", "slice_shadow_state",
-    "topk_to_layer_dict", "experts_activated", "prefill_expert_assignment",
-    "split_minibatches", "GroupSchedule", "DeviceShard", "ExpertStore", "LoadEvent",
+    "concat_shadow_states", "layers_within_horizon", "moe_layer_indices", "recall_counts",
+    "slice_shadow_state", "topk_to_layer_dict", "ChaosExecutor", "GateStatsResidency",
+    "LRUResidency", "PrefetchExecutor", "ResidencyPolicy", "SyncExecutor", "ThreadedExecutor",
+    "make_executor", "resolve_residency", "experts_activated", "prefill_expert_assignment",
+    "split_minibatches", "GroupSchedule", "DeviceShard", "ExpertStore", "FetchedShard", "LoadEvent",
     "WorkerSlots", "RTX3090_EDGE", "DecodeClock", "HardwareProfile", "ODMoETimings",
     "ServingTimings", "degraded_tpot_report", "embedding_payload", "latency_percentiles",
     "layer_bytes", "node_memory_report", "poisson_arrivals", "simulate_cached",

@@ -26,11 +26,18 @@ the slots keep wire-format codes and scales and each wave runs one
 ``grouped_topk_contrib_packed`` call per resident scheme; in-register
 dequantization is exact, so the tokens are the same.
 
+``prefetch`` (``"sync"``, ``"thread"`` or an executor such as
+``ChaosExecutor``) fetches the predicted experts ahead of their layer
+on a side CUDA stream, and ``residency`` (``"lru"`` or ``"gate"``)
+releases a layer's experts instead of evicting them, so a later load of
+the same expert re-hits (``repro_torch.core.prefetch``).  Neither
+changes a token; prefetch changes no record either, residency only
+removes loads.
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md
 queue 1): speculative decoding (``decode_batch_spec`` runs one-token
-waves only), prefetch executors and residency,
-fleet profiles and faults, compute-vs-ship, and the per-pair ``loop``
-wave oracle.
+waves only), fleet profiles and faults, compute-vs-ship, and the
+per-pair ``loop`` wave oracle.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from repro_torch.quant.transport import resolve_policy, transport_params
 from repro_torch.rows import row_blocks
 
 from .align import AlignmentPolicy
+from .prefetch import PrefetchExecutor, make_executor, resolve_residency
 from .predictor import (FrequencyPredictor, GateExtrapolator, RandomPredictor,
                         SEPShadow, moe_layer_indices, recall_counts)
 from .schedule import GroupSchedule
@@ -75,6 +83,10 @@ class LayerRecord:
     waves: Optional[List[List[Tuple[int, int]]]] = None  # per-wave subsets
     touched: Tuple[int, ...] = ()        # every worker that took a load
     gates: Optional[np.ndarray] = None   # (B,k) gate weights
+    # under residency: the predicted experts that physically shipped
+    # (re-hits excluded), which the timing model prices; None otherwise
+    shipped: Optional[Tuple[int, ...]] = None
+    rehits: int = 0                      # residency re-hits this layer
 
 
 @dataclass
@@ -159,12 +171,14 @@ def concat_cache_lists(cache_lists: Sequence):
 
 
 def slice_cache_list(cache_list, i: int):
-    """Request ``i`` of a composed cache list (batch of 1).  A paged batch
-    returns the member's handle: the step's scatter already committed its
-    pages."""
+    """Request ``i`` of a composed cache list (batch of 1), in storage of
+    its own: a view would keep the whole composed batch alive for as long
+    as the request is stored.  A paged batch returns the member's handle:
+    the step's scatter already committed its pages."""
     if hasattr(cache_list, "member"):
         return cache_list.member(i)
-    return [tree_map(lambda a: a[i:i + 1], c) for c in cache_list]
+    return [tree_map(lambda a: a[i:i + 1].clone(memory_format=torch.contiguous_format), c)
+            for c in cache_list]
 
 
 def _not_ported(feature: str, item: str):
@@ -177,13 +191,15 @@ class ODMoEEngine:
                  group_size: int = 0, predictor: str = "sep",
                  shadow_scheme: str = "int8", lookahead: int = 4, seed: int = 0,
                  transport=None, device="cuda", speculate: int = 1,
-                 prefetch=None, residency=None, packed_slots: bool = False,
-                 profiles=None, faults=None, compute_vs_ship=None,
-                 wave_compute: str = "grouped"):
+                 prefetch=None, residency=None, peek_horizon: int = 0,
+                 packed_slots: bool = False, store=None, profiles=None, faults=None,
+                 compute_vs_ship=None, wave_compute: str = "grouped"):
         if cfg.is_encoder_decoder:
             raise ValueError("engine drives decoder-only models")
         if speculate < 1:
             raise ValueError("speculate must be >= 1")
+        if (prefetch is not None or residency is not None) and wave_compute != "grouped":
+            raise ValueError("prefetch/residency require the grouped wave path")
         if packed_slots and wave_compute != "grouped":
             # the loop oracle reads full-width slot dicts
             raise ValueError("packed_slots requires the grouped wave path")
@@ -192,8 +208,6 @@ class ODMoEEngine:
                 raise ValueError("speculate > 1 requires all-attention mixers (SSM "
                                  "states cannot fork per wave row)")
             _not_ported("speculate > 1", "core/specdecode.py")
-        if prefetch is not None or residency is not None:
-            _not_ported("prefetch / residency", "core/prefetch.py")
         if profiles is not None or faults is not None:
             _not_ported("fleet profiles / faults", "fleet/")
         if compute_vs_ship is not None:
@@ -219,11 +233,29 @@ class ODMoEEngine:
         if n_workers % g:
             n_workers = g * max(1, n_workers // g)
         self.sched = GroupSchedule(n_workers, g)
-        self.store = ExpertStore(cfg, params, policy=self.transport)
+        # a prebuilt ``store`` (engines over the same parameters may share
+        # one) must carry this engine's transport policy, or slot contents
+        # would diverge from its compute params
+        if store is not None:
+            if store.policy is not self.transport and \
+                    store.policy.describe() != self.transport.describe():
+                raise ValueError("shared store transport policy differs from the engine's")
+            self.store = store
+        else:
+            self.store = ExpertStore(cfg, params, policy=self.transport)
         self.params = (params if self.transport.trivial
                        else transport_params(cfg, params, self.transport,
                                              packed=self.store.get_packed))
-        self.slots = WorkerSlots(self.store, n_workers, packed_resident=packed_slots)
+        # opportunistic residency and async prefetch; None keeps the
+        # cacheless synchronous engine (release evicts, loads fetch inline)
+        self.residency = resolve_residency(residency)
+        self.slots = WorkerSlots(self.store, n_workers, packed_resident=packed_slots,
+                                 residency=self.residency)
+        executor = make_executor(prefetch)
+        self.prefetch: Optional[PrefetchExecutor] = (
+            None if executor is None
+            else PrefetchExecutor(self.store, executor, horizon=peek_horizon,
+                                  packed=packed_slots))
         self._layer_params = [layer_params(cfg, self.params, li)
                               for li in range(cfg.num_layers)]
         self.shadow: Optional[SEPShadow] = None
@@ -324,6 +356,10 @@ class ODMoEEngine:
         cfg = self.cfg
         x = embed(token[:, None], self.params["embed"])
         pending: Dict[int, np.ndarray] = dict(preds)
+        # SEP predictions cover the whole token: queue their fetches now, so
+        # the transfers overlap everything before each layer's waves
+        if self.prefetch is not None and pending:
+            self.prefetch.enqueue(step_idx, 0, pending, skip=self._resident_skip())
         moe_i = -1
         for li, kinds in enumerate(cfg.layer_kinds()):
             lp = self._layer_params[li]
@@ -339,6 +375,8 @@ class ODMoEEngine:
             topk_idx, topk_gate = route(cfg, lp["ff"], h)
             x = self._moe_bookkeeping(step_idx, li, moe_i, pending,
                                       topk_idx.cpu().numpy(), h, topk_gate, x, rec)
+        if self.prefetch is not None:
+            self.prefetch.finish_token(step_idx)
         logits = decode_logits(cfg, self.params, x)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache_list, pos + 1
 
@@ -349,7 +387,7 @@ class ODMoEEngine:
         ``tokens`` (B, S).  Only S = 1 is ported: it is the one-token step,
         and returns ``(tokens (B, 1), commits (B,) of ones, cache_list,
         pos + 1)`` with ``rec.spec_len, rec.committed = 1, B``.  S > 1
-        raises (ROADMAP.md queue 1, item 2)."""
+        raises (ROADMAP.md queue 1, item 3)."""
         b, s_w = tokens.shape
         if s_w != 1:
             _not_ported("speculative verify waves (S > 1)", "core/specdecode.py")
@@ -359,10 +397,19 @@ class ODMoEEngine:
         return (tok[:, None], torch.ones((b,), dtype=torch.int32, device=tok.device),
                 cache_list, pos)
 
+    def _resident_skip(self):
+        """Prefetch skip predicate under residency: an expert still resident
+        somewhere will re-hit, so fetching it is waste.  ``None`` without
+        residency (no resident outlives its layer)."""
+        if self.residency is None:
+            return None
+        return lambda layer, e: self.slots.worker_with(layer, e) is not None
+
     def _moe_bookkeeping(self, step_idx, li, moe_i, pending, true, h,
                          topk_gate, x, rec: TokenRecord):
-        """On-the-fly predictors, serve + compute, the trace record and
-        the cacheless eviction of every worker touched by this layer."""
+        """On-the-fly predictors, serve + compute, the trace record and the
+        cacheless eviction of every worker touched by this layer (under
+        residency, their release)."""
         b = true.shape[0]
         if self.fly is not None:
             pending.update(self.fly.predict_from(li, h))
@@ -370,18 +417,27 @@ class ODMoEEngine:
             pending[li] = self.freq.predict(li, b)
         if self.rand is not None:
             pending[li] = self.rand.predict(li, b)
+        if self.prefetch is not None and pending:
+            # on-the-fly predictors only just predicted this layer (and
+            # their lookahead): queue what is new in the window
+            self.prefetch.enqueue(step_idx, li, pending, skip=self._resident_skip())
         pred = pending.get(li)
         lr, y = self._serve_and_compute(step_idx, li, moe_i, pred, true, h,
                                         topk_gate)
         rec.layers.append(lr)
         if self.freq is not None:
             self.freq.observe(li, true)
+        if self.residency is not None:
+            self.slots.observe_gates(li, true, lr.gates)
         x = x + y[:, None].to(x.dtype)
         used = set(lr.touched)
         used.update(w for _, w in lr.assignments)
         used.update(self.sched.workers_of_group(lr.group))
         for w in sorted(used):
-            self.slots.evict(w)
+            if self.residency is not None:
+                self.slots.release(w)
+            else:
+                self.slots.evict(w)
         return x
 
     # ------------------------------------------------------ serve+compute
@@ -392,12 +448,36 @@ class ODMoEEngine:
         fleet holds at once (each wave assigns distinct workers)."""
         group = self.sched.group_of(moe_i)
         touched: set = set()
+        rehits = 0
+        shipped: List[int] = []
         # 1) predicted experts load ahead of the gate; overflow beyond the
-        # fleet's slots falls through to the reload path
+        # fleet's slots falls through to the reload path.  Under residency,
+        # predicted experts still resident re-hit in place first, and the
+        # rest go onto the remaining slots.  Every scheduling decision is
+        # made here, on the main thread: an executor only changes when a
+        # payload was fetched.
         if pred is not None:
             pred_experts = list(dict.fromkeys(int(e) for e in pred.reshape(-1)))
-            for e, w in self.sched.place(moe_i, pred_experts):
-                self.slots.load(step_idx, layer, e, w, predicted=True)
+            rest: List[int] = []
+            reserved: Dict[int, int] = {}
+            if self.residency is not None:
+                for e in pred_experts:
+                    w = self.slots.reactivate(layer, e)
+                    if w is None:
+                        rest.append(e)
+                    else:                      # re-hit: the slot is live
+                        rehits += 1
+                        touched.add(w)
+                        reserved[w] = reserved.get(w, 0) + 1
+            else:
+                rest = pred_experts
+            pairs = self.sched.place(moe_i, rest, reserved)
+            payloads = (self.prefetch.collect(step_idx, layer, [e for e, _ in pairs])
+                        if self.prefetch is not None and pairs else {})
+            for e, w in pairs:
+                if self.slots.load(step_idx, layer, e, w, predicted=True,
+                                   payload=payloads.get(e)):
+                    shipped.append(e)
                 touched.add(w)
         # 2) the gate result is ground truth: reload anything missing
         order = self.sched.serving_order(moe_i)
@@ -413,18 +493,30 @@ class ODMoEEngine:
             for e in remaining:                           # correct predictions
                 w = self.slots.worker_with(layer, e)
                 if w is not None and w not in claimed:
+                    if (self.residency is not None
+                            and self.slots.claim_resident(layer, e, w)):
+                        rehits += 1               # mispredicted but still resident
+                        touched.add(w)
                     wave[e] = w
                     claimed.add(w)
             free = [w for w in order if w not in claimed]
             if not wave and not free:
                 raise RuntimeError(f"no workers left to serve layer {layer}")
+            # assign the wave's misses first, fetch them together through
+            # the executor, then commit in assignment order: the worker
+            # choices and event order of the synchronous path
+            loads: List[Tuple[int, int]] = []
             for e in remaining:
                 if e in wave or self.slots.worker_with(layer, e) is not None:
                     continue
                 if not free:
                     break                                 # overflow -> next wave
-                w = free.pop(0)
-                self.slots.load(step_idx, layer, e, w, predicted=False)
+                loads.append((e, free.pop(0)))
+            payloads = (self.prefetch.fetch_now(step_idx, layer, [e for e, _ in loads])
+                        if self.prefetch is not None and loads else {})
+            for e, w in loads:
+                self.slots.load(step_idx, layer, e, w, predicted=False,
+                                payload=payloads.get(e))
                 touched.add(w)
                 reloads += 1
                 wave[e] = w
@@ -439,7 +531,9 @@ class ODMoEEngine:
                          correct=recall_counts(pred, true) if pred is not None else 0,
                          reloads=reloads, assignments=assignments, waves=waves,
                          touched=tuple(sorted(touched)),
-                         gates=gates.cpu().numpy())
+                         gates=gates.cpu().numpy(),
+                         shipped=tuple(shipped) if self.residency is not None else None,
+                         rehits=rehits)
         return lr, y
 
     def _compute_wave(self, layer, h, true, gates, wave: Dict[int, int], contrib):
@@ -470,6 +564,29 @@ class ODMoEEngine:
         match = true[..., None] == np.asarray(experts)      # (B, k, E_wave)
         slot_map = np.where(match.any(-1), match.argmax(-1), -1)
         return torch.as_tensor(slot_map, device=h.device)
+
+    # ---------------------------------------------------- prefetch report
+    def prefetch_report(self) -> dict:
+        """Prefetch and residency counters: what the executor fetched ahead
+        or inline, and what re-hits saved.  ``rehit_rate`` is re-hits over
+        all slot fills (loads + re-hits)."""
+        rs = self.slots.residency_stats
+        denom = self.slots.stats["loads"] + rs["rehits"]
+        rep = {"residency": getattr(self.residency, "name", None),
+               "rehit_rate": rs["rehits"] / denom if denom else 0.0,
+               "bytes_moved": self.slots.bytes_moved}
+        rep.update({f"residency_{k}": v for k, v in rs.items()})
+        if self.prefetch is not None:
+            rep["executor"] = self.prefetch.executor.kind
+            rep.update({f"prefetch_{k}": v for k, v in self.prefetch.stats.items()})
+        return rep
+
+    def close(self) -> None:
+        """Join the prefetch executor and drain its side stream (nothing
+        without prefetch).  The engine stays usable: a later fetch starts
+        the executor again."""
+        if self.prefetch is not None:
+            self.prefetch.close()
 
     # ------------------------------------------------------------- memory
     def memory_report(self) -> dict:

@@ -15,7 +15,7 @@ Recall is Eq. (2)/(3): correctly predicted experts / (k · L · tokens).
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +29,15 @@ from repro_torch.quant import shadow_params
 
 def moe_layer_indices(cfg: ModelConfig) -> List[int]:
     return [i for i, (_, ff) in enumerate(cfg.layer_kinds()) if ff == MOE_FF]
+
+
+def layers_within_horizon(moe_layers: Sequence[int], current_layer: int,
+                          horizon: int) -> List[int]:
+    """The peek window of the prefetch load queue: MoE layer indices at or
+    after ``current_layer``, the first ``horizon`` of them (``0`` = all of
+    them; the SEP shadow predicts the whole token at once)."""
+    ahead = [li for li in sorted(moe_layers) if li >= current_layer]
+    return ahead if horizon <= 0 else ahead[:horizon]
 
 
 def topk_to_layer_dict(cfg: ModelConfig, topk_tuple) -> Dict[int, np.ndarray]:
@@ -128,10 +137,15 @@ def concat_shadow_states(states) -> dict:
 
 
 def slice_shadow_state(state: dict, i: int) -> dict:
-    """Request ``i`` of a composed shadow state (batch of 1)."""
-    caches = tuple(tree_map(lambda a: a[:, i:i + 1], c) for c in state["caches"])
-    return {"caches": caches, "pos": state["pos"][i:i + 1],
-            "token": state["token"][i:i + 1]}
+    """Request ``i`` of a composed shadow state (batch of 1), every leaf in
+    storage of its own, so a pending snapshot does not keep the composed
+    batch alive."""
+    def own(a):
+        return a.clone(memory_format=torch.contiguous_format)
+
+    caches = tuple(tree_map(lambda a: own(a[:, i:i + 1]), c) for c in state["caches"])
+    return {"caches": caches, "pos": own(state["pos"][i:i + 1]),
+            "token": own(state["token"][i:i + 1])}
 
 
 # ------------------------------------------------------- on-the-fly

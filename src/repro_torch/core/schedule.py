@@ -10,7 +10,7 @@ from ``repro.core.schedule`` (the fleet-aware schedule waits).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -58,10 +58,19 @@ class GroupSchedule:
         so ``serving_order``)."""
         return self.serving_order(moe_index)
 
-    def place(self, moe_index: int, experts: Sequence[int]) -> List[Tuple[int, int]]:
-        """Map predicted experts onto workers in ``load_targets``; any
-        overflow is dropped (the reload path picks it up)."""
-        return list(zip(experts, self.load_targets(moe_index)))
+    def place(self, moe_index: int, experts: Sequence[int],
+              reserved: Optional[Dict[int, int]] = None) -> List[Tuple[int, int]]:
+        """Map predicted experts onto workers in ``load_targets``, skipping
+        ``reserved`` slots (worker -> slots already taken, e.g. residency
+        re-hits); any overflow is dropped (the reload path picks it up)."""
+        budget = dict(reserved) if reserved else {}
+        targets: List[int] = []
+        for w in self.load_targets(moe_index):
+            if budget.get(w, 0) > 0:
+                budget[w] -= 1
+                continue
+            targets.append(w)
+        return list(zip(experts, targets))
 
     def t_maxload(self, t_main: float, t_worker: float) -> float:
         """Eq. (1): while a group computes layer l, the other ``G - 1``

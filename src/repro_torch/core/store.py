@@ -16,14 +16,24 @@ with its exact packed payload; ``bytes_moved`` sums them.
 
 Stats (as in ``repro.core.store``): ``evictions`` counts every resident
 displaced, by a capacity overwrite or an explicit ``evict``; ``hits``
-counts loads that found their expert already resident.  Residency,
-multi-slot profiles and worker failure wait (ROADMAP.md queue 1).
+counts loads that found their expert already resident.
+
+Opportunistic residency (``repro_torch.core.prefetch``): ``release``
+marks a worker's resident *released* instead of evicting it; it keeps
+its slot, and a later load of the same expert re-hits in place (no
+event, zero bytes).  Only a full worker taking a new load evicts, the
+residency policy naming the victim among released residents.  Its
+counters live in ``residency_stats``, beside ``stats``.  A load may
+commit a payload fetched earlier (``FetchedShard``) instead of fetching
+inline.  Multi-slot profiles and worker failure wait (ROADMAP.md
+queue 1, item 4).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models.config import MOE_FF, ModelConfig
@@ -54,6 +64,36 @@ class DeviceShard:
     scheme: str
     parts: Dict[str, Tuple[torch.Tensor, ...]]   # weight name -> device-layout parts
     nbytes: int                                  # resident device bytes of this shard
+
+
+def _slot_tensors(data) -> List[torch.Tensor]:
+    """The device tensors of one slot's contents (a weight dict or a
+    ``DeviceShard``)."""
+    if isinstance(data, DeviceShard):
+        return [t for ps in data.parts.values() for t in ps]
+    return list(data.values())
+
+
+@dataclass
+class FetchedShard:
+    """One expert fetched ahead of its commit: the slot contents that
+    ``unpack_shard`` or ``device_shard`` returned and, on the card, the
+    event recorded on the side stream after its copies and dequantize."""
+    data: object
+    ready: Optional[torch.cuda.Event] = None
+
+    def commit(self, device: torch.device):
+        """The contents, safe to read on ``device``'s current stream: that
+        stream waits for the event (on the device, the host does not
+        block), and the caching allocator learns that the stream uses the
+        tensors, so freeing the slot cannot hand their memory back to the
+        side stream while a kernel still reads it."""
+        if self.ready is not None:
+            main = torch.cuda.current_stream(device)
+            main.wait_event(self.ready)
+            for t in _slot_tensors(self.data):
+                t.record_stream(main)
+        return self.data
 
 
 def _pack_to_host(codec, w: torch.Tensor) -> PackedWeight:
@@ -142,6 +182,7 @@ class ExpertStore:
         if not self.resident_tileable(layer, expert):
             full = self.unpack_shard(layer, expert)
             return DeviceShard("fp32", {n: (full[n],) for n in full}, self.expert_bytes)
+        # two prefetch threads may both build an entry: equal views, either wins
         if key not in self._device_host:
             self._device_host[key] = {n: device_layout(pw)
                                       for n, pw in self._packed[key].items()}
@@ -159,19 +200,29 @@ class ExpertStore:
 class WorkerSlots:
     """``n_workers`` single-expert device slots with load/evict accounting.
     ``packed_resident=True`` keeps each slot's shard in wire format
-    (``ExpertStore.device_shard``) instead of dequantizing on arrival."""
+    (``ExpertStore.device_shard``) instead of dequantizing on arrival.
+    ``residency`` (a ``ResidencyPolicy``) turns ``release`` into
+    opportunistic residency; without one it evicts (cacheless)."""
 
-    def __init__(self, store: ExpertStore, n_workers: int, packed_resident: bool = False):
+    def __init__(self, store: ExpertStore, n_workers: int, packed_resident: bool = False,
+                 residency=None):
         self.store = store
         self.n_workers = n_workers
         self.packed_resident = packed_resident
-        # per worker: the resident (layer, expert) and its device weights
+        self.residency = residency
+        # per worker: the resident (layer, expert), its device weights, and
+        # whether it is released (kept, free for a re-hit or displacement)
         self.resident: List[Optional[Tuple[int, int]]] = [None] * n_workers
         self._data: List[Optional[dict]] = [None] * n_workers
+        self._released: List[bool] = [False] * n_workers
         self.events: List[LoadEvent] = []
         self.stats = {"loads": 0, "predicted_loads": 0, "reloads": 0,
                       "hits": 0, "evictions": 0}
         self.bytes_moved: int = 0
+        # ``rehit_bytes_saved``: the packed payload re-hits did not move;
+        # ``evicted_bytes``: the slot bytes every eviction freed
+        self.residency_stats = {"released": 0, "rehits": 0, "rehit_bytes_saved": 0,
+                                "displaced": 0, "evicted_bytes": 0}
         self._request_context: Tuple[int, ...] = ()
 
     def set_request_context(self, request_ids) -> None:
@@ -181,28 +232,126 @@ class WorkerSlots:
         self._request_context = tuple(int(r) for r in request_ids)
 
     def load(self, token: int, layer: int, expert: int, worker: int,
-             predicted: bool) -> bool:
-        """Ship (layer, expert)'s packed shard into ``worker``'s slot,
-        overwriting (evicting) whatever it held.  Returns ``True`` when
-        the load shipped, ``False`` on a hit."""
+             predicted: bool, payload: Optional[FetchedShard] = None) -> bool:
+        """Ship (layer, expert)'s packed shard into ``worker``'s slot.  A
+        full worker evicts its resident: the residency policy's victim
+        when the resident is released, else the resident itself (the
+        cacheless overwrite); either is an eviction.  ``payload`` is a
+        fetch made earlier by the prefetch executor: the commit uses it
+        instead of fetching inline and accounts the same packed bytes.
+        Returns ``True`` when the load shipped, ``False`` on a hit or a
+        re-hit."""
         key = (layer, expert)
         if self.resident[worker] == key:
-            self.stats["hits"] += 1
+            if self._released[worker]:
+                self._reactivate(worker)           # residency re-hit
+            else:
+                self.stats["hits"] += 1
             return False
         if self.resident[worker] is not None:
+            victim = self.resident[worker]
+            if self.residency is not None and self._released[worker]:
+                victim = self.residency.victim([victim])
+                self.residency_stats["displaced"] += 1
+            self._drop(worker, victim)
             self.stats["evictions"] += 1
-        self._data[worker] = None                 # free the old slot first
-        self._data[worker] = (self.store.device_shard(layer, expert) if self.packed_resident
-                              else self.store.unpack_shard(layer, expert))
+        if payload is not None:
+            data = payload.commit(self.store.device)
+        elif self.packed_resident:
+            data = self.store.device_shard(layer, expert)
+        else:
+            data = self.store.unpack_shard(layer, expert)
+        self._data[worker] = data
         self.resident[worker] = key
         self.stats["loads"] += 1
         self.stats["predicted_loads" if predicted else "reloads"] += 1
         nbytes = self.store.packed_bytes(layer, expert)
         self.bytes_moved += nbytes
+        if self.residency is not None:
+            self.residency.note(key)
         self.events.append(LoadEvent(token, layer, expert, worker, predicted, nbytes,
                                      self.store.scheme_of(layer, expert),
                                      requests=self._request_context))
         return True
+
+    def _drop(self, worker: int, key: Tuple[int, int]) -> None:
+        """Free ``worker``'s slot, which holds ``key``."""
+        self.residency_stats["evicted_bytes"] += self._resident_nbytes(key)
+        if self.residency is not None:
+            self.residency.forget(key)
+        self.resident[worker] = None
+        self._data[worker] = None
+        self._released[worker] = False
+
+    # ---------------------------------------------------------- residency
+    def _reactivate(self, worker: int) -> None:
+        """A released resident is used again: un-release it in place.  The
+        re-hit saved exactly the packed payload a reload would move."""
+        key = self.resident[worker]
+        self._released[worker] = False
+        self.residency_stats["rehits"] += 1
+        self.residency_stats["rehit_bytes_saved"] += self.store.packed_bytes(*key)
+        if self.residency is not None:
+            self.residency.note(key)
+
+    def reactivate(self, layer: int, expert: int) -> Optional[int]:
+        """Claim a resident copy of (layer, expert) anywhere in the fleet:
+        a re-hit when it was released, a plain claim when it is active.
+        Returns the worker, or ``None`` when nothing holds it."""
+        w = self.worker_with(layer, expert)
+        if w is not None and self._released[w]:
+            self._reactivate(w)
+        return w
+
+    def claim_resident(self, layer: int, expert: int, worker: int) -> bool:
+        """Wave-time claim of an expert resident on ``worker``: un-release
+        it when released (a reload avoided).  Returns whether that
+        re-hit happened."""
+        if self.is_released(worker, layer, expert):
+            self._reactivate(worker)
+            return True
+        return False
+
+    def is_released(self, worker: int, layer: int, expert: int) -> bool:
+        return self._released[worker] and self.resident[worker] == (layer, expert)
+
+    def release(self, worker: int) -> None:
+        """Opportunistic residency: mark the worker's resident released; it
+        stays in its slot until displaced and a matching load re-hits.
+        Without a policy this is ``evict`` (cacheless)."""
+        if self.residency is None:
+            self.evict(worker)
+            return
+        if self.resident[worker] is not None and not self._released[worker]:
+            self._released[worker] = True
+            self.residency_stats["released"] += 1
+
+    def observe_gates(self, layer: int, true, gates) -> None:
+        """Feed the router's realized routing to the residency policy (gate
+        popularity), accumulated per key and credited in ascending key
+        order."""
+        if self.residency is None:
+            return
+        mass: Dict[Tuple[int, int], float] = {}
+        t, g = np.asarray(true), np.asarray(gates)
+        for b in range(t.shape[0]):
+            for j in range(t.shape[1]):
+                key = (layer, int(t[b, j]))
+                mass[key] = mass.get(key, 0.0) + abs(float(g[b, j]))
+        for key in sorted(mass):
+            self.residency.credit(key, mass[key])
+
+    def _resident_nbytes(self, key: Tuple[int, int]) -> int:
+        """Device bytes one resident occupies: full width, or the packed
+        payload in packed-resident mode."""
+        if self.packed_resident:
+            return self.store.resident_nbytes(*key)
+        return self.store.expert_bytes
+
+    def resident_slot_bytes(self, worker: int) -> int:
+        """Device bytes ``worker``'s slot holds (active or released)."""
+        key = self.resident[worker]
+        return 0 if key is None else self._resident_nbytes(key)
 
     def slot(self, worker: int, layer: int, expert: int) -> dict:
         if self.resident[worker] != (layer, expert):
@@ -248,8 +397,7 @@ class WorkerSlots:
         """Prompt eviction after the expert computation (cacheless rule)."""
         if self.resident[worker] is not None:
             self.stats["evictions"] += 1
-        self.resident[worker] = None
-        self._data[worker] = None
+            self._drop(worker, self.resident[worker])
 
     def transient_packed_bytes(self) -> int:
         """Largest packed shard live on a worker beside its full-width

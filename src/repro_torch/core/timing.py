@@ -243,7 +243,17 @@ class DecodeClock:
             workers = sched.active_workers_of_group(moe_i)
             targets = sched.load_targets(moe_i)
             load_done = 0.0
-            if lr is not None and lr.predicted is not None:
+            if (lr is not None and lr.predicted is not None
+                    and lr.shipped is not None):
+                # residency-aware records list exactly the predicted experts
+                # that shipped (re-hits excluded): price those and only those,
+                # with no group padding (a fully re-hit layer loads nothing)
+                for j, e in enumerate(lr.shipped):
+                    w = targets[j % len(targets)]
+                    ls = max(pred_avail(li, t - self.t_router), worker_free[w])
+                    worker_free[w] = ls + profile.t_load(self._bytes_for(li, int(e)))
+                    load_done = max(load_done, worker_free[w])
+            elif lr is not None and lr.predicted is not None:
                 # predicted loads, issued once the prediction and the worker
                 # allow, each priced by its expert's packed bytes (padding
                 # loads beyond the known experts at the default scheme)

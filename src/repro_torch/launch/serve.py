@@ -22,9 +22,10 @@ serving mode).  They print recall, loads, bytes moved, memory and the
 measured wall time per decoded token or per composed step, then what
 the timing model gives for the paper's testbed (a model, never a
 measurement).  ``--packed-slots`` keeps wire-format experts in the
-worker slots and computes them with the in-register-dequant kernel.
-Cluster mode (``--replicas > 1``) waits for ``fleet/`` (ROADMAP.md
-queue 1, item 5).
+worker slots and computes them with the in-register-dequant kernel;
+``--token-period`` / ``--kv-period`` set how often the SEP shadow aligns
+its token and KV with the main model.  Cluster mode (``--replicas > 1``) waits for ``fleet/`` (ROADMAP.md
+queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -37,10 +38,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import (RTX3090_EDGE, ODMoEEngine, node_memory_report,
+from repro_torch.core import (RTX3090_EDGE, AlignmentPolicy, ODMoEEngine, node_memory_report,
                               simulate_cached, simulate_odmoe)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_decode import flash_decode_kernel
+from repro_torch.kernels.int8_matmul import int8_matmul_kernel
 from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_packed_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 from repro_torch.models import greedy_generate, init_params
@@ -49,9 +51,11 @@ from repro_torch.serve import (BatchComposer, KVPool, ServingLoop, WorkloadSpec,
                                dense_cache_footprint, make_trace, make_traffic)
 
 MODELLED = f"modelled ({RTX3090_EDGE.name} profile, not measured)"
-# every hand-written kernel a decode path can launch, by name
+# every hand-written kernel of the port, by name; as in the JAX package,
+# no decode path calls int8_matmul, so its count stays 0 here
 KERNELS = {"moe_ffn": moe_ffn_kernel, "moe_ffn_packed": moe_ffn_packed_kernel,
-           "flash_decode": flash_decode_kernel, "ssd_scan": ssd_scan_kernel}
+           "flash_decode": flash_decode_kernel, "ssd_scan": ssd_scan_kernel,
+           "int8_matmul": int8_matmul_kernel}
 
 
 def _launches() -> dict:
@@ -72,6 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "none"])
     ap.add_argument("--shadow", default="int8", choices=["fp16", "int8", "nf4"])
     ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--token-period", type=int, default=1,
+                    help="align the shadow's input token with the main model's every "
+                         "N steps (0 = never)")
+    ap.add_argument("--kv-period", type=int, default=1,
+                    help="copy the main model's KV into the shadow every N steps "
+                         "(0 = never)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--transport-precision", default="fp32",
                     choices=["fp32", "fp16", "int8", "nf4", "tiered"],
@@ -161,6 +171,15 @@ def print_transport_stats(eng) -> None:
         f"{s}={n} ({b / 1e6:.2f} MB)" for s, (n, b) in sorted(by_scheme.items())))
 
 
+def print_prefetch_report(eng) -> None:
+    """The prefetch and residency counters, when either ran."""
+    if eng.prefetch is None and eng.residency is None:
+        return
+    rep = eng.prefetch_report()
+    print("  prefetch/residency: " + ", ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in rep.items()))
+
+
 def serve_single(cfg, params, args) -> dict:
     """Decode one random prompt with the engine and with the dense
     reference; print the comparison and the engine's accounting.
@@ -176,7 +195,8 @@ def serve_single(cfg, params, args) -> dict:
                       packed_slots=args.packed_slots)
     _sync(device)
     t0 = time.perf_counter()
-    toks, trace = eng.generate(batch, args.tokens)
+    toks, trace = eng.generate(batch, args.tokens,
+                               AlignmentPolicy(args.token_period, args.kv_period))
     _sync(device)
     t_engine = time.perf_counter() - t0
     launches1 = _launches()
@@ -258,28 +278,41 @@ def _percentile_line(rep, m: str) -> str:
             f"p99 {rep[f'{m}_p99_s'] * 1e3:.2f}   [{MODELLED}]")
 
 
-def serve_traffic(cfg, params, args) -> dict:
+def serve_traffic(cfg, params, args, **engine_options) -> dict:
     """Serve ``--requests`` through ``ServingLoop``, check every request
     against its solo decode, and print the latency report (modelled), the
     measured composed-step times by batch size, load amortization and the
-    KV pool's counters.  Returns the result, the engine, the pool and the
-    kernel launches on the serving side and on the reference side."""
+    KV pool's counters.  ``engine_options`` go to ``ODMoEEngine``
+    (``prefetch``, ``residency``: the JAX package's command line has no
+    flag for them).  Returns the result, the engine, the pool, the kernel
+    launches on the serving side and on the reference side, and on a CUDA
+    device the peak of allocated memory while building the engine and the
+    pool (``build_peak_bytes``) and while serving (``serving_peak_bytes``);
+    both are None on the host."""
     if args.replicas > 1:
         raise NotImplementedError("cluster serving (--replicas > 1) is not ported yet: "
-                                  "it waits for fleet/ (ROADMAP.md queue 1, item 5)")
+                                  "it waits for fleet/ (ROADMAP.md queue 1, item 4)")
     device = params["embed"]["table"].device
     transport = build_transport(cfg, params, args)
     launches0 = _launches()
     eng = ODMoEEngine(cfg, params, n_workers=args.workers, predictor=args.predictor,
                       shadow_scheme=args.shadow, seed=args.seed, transport=transport,
-                      device=device, packed_slots=args.packed_slots)
+                      device=device, packed_slots=args.packed_slots, **engine_options)
     reqs = build_requests(cfg, args)
     kv_pool = (KVPool(cfg, num_pages=args.kv_pages, page_tokens=args.page_tokens,
                       device=device) if args.kv_pages else None)
     loop = ServingLoop(eng, max_batch=args.max_batch,
                        composer=BatchComposer(args.max_batch, args.compose, kv_pool=kv_pool),
-                       kv_pool=kv_pool, preempt=args.preempt, admit=args.admit)
+                       kv_pool=kv_pool, preempt=args.preempt, admit=args.admit,
+                       policy=AlignmentPolicy(args.token_period, args.kv_period))
+    on_card = torch.device(device).type == "cuda"
+    build_peak = serving_peak = None
+    if on_card:
+        build_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
     res = loop.run(reqs)
+    if on_card:
+        serving_peak = torch.cuda.max_memory_allocated(device)
     launches1 = _launches()
     check_bit_exact(cfg, params, reqs, res.outputs, transport)
     launches2 = _launches()
@@ -314,6 +347,7 @@ def serve_traffic(cfg, params, args) -> dict:
               f"loads/step: {len(ev) / max(len(res.steps), 1):.3f}")
     print(f"  load stats: {eng.slots.stats}")
     print_transport_stats(eng)
+    print_prefetch_report(eng)
     if kv_pool is not None:
         st = res.kv_stats
         occ = [s.kv_pages_used for s in res.steps if s.kv_pages_used >= 0]
@@ -331,6 +365,9 @@ def serve_traffic(cfg, params, args) -> dict:
     mem = node_memory_report(eng, kv_pool)
     print("  per-node memory: " + ", ".join(f"{k}={v / 1e6:.2f}MB" for k, v in mem.items()
                                             if k.endswith("bytes")))
+    if on_card:
+        print(f"  peak allocated device memory: {build_peak / 1e9:.2f} GB while building the "
+              f"engine and the pool, {serving_peak / 1e9:.2f} GB while serving")
     per_req = {r.rid: 0 for r in reqs}
     for e in ev:
         for rid in e.requests:
@@ -343,7 +380,8 @@ def serve_traffic(cfg, params, args) -> dict:
     serving, reference = _since(launches0, launches1), _since(launches1, launches2)
     print(f"  kernel launches: serving (engine+shadow) {serving}, reference {reference}")
     return {"result": res, "engine": eng, "kv_pool": kv_pool, "requests": reqs,
-            "launches_serving": serving, "launches_reference": reference}
+            "launches_serving": serving, "launches_reference": reference,
+            "build_peak_bytes": build_peak, "serving_peak_bytes": serving_peak}
 
 
 def main(argv=None):

@@ -33,9 +33,11 @@ row-local work in fixed row blocks (``rows.row_blocks``), and
 the attention and expert kernels give each row bits that do not depend
 on B or on the cache window.
 
-Not ported (each raises ``NotImplementedError`` at the engine):
-speculation (S > 1), fault injection, prefetch and residency.  The
-cluster router waits for ``fleet/`` (ROADMAP.md queue 1, item 5).
+An engine built with ``prefetch`` and ``residency`` serves the same
+tokens and events; ``ServeResult.prefetch_stats`` carries its
+``prefetch_report()``.  Not ported (each raises ``NotImplementedError``
+at the engine): speculation (S > 1) and fault injection.  The cluster
+router waits for ``fleet/`` (ROADMAP.md queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -122,6 +124,8 @@ class ServeResult:
     states: Dict[int, RequestState] = field(default_factory=dict)
     n_workers: int = 0
     kv_stats: Optional[Dict] = None      # pool counters + swap seconds
+    prefetch_stats: Optional[Dict] = None  # engine.prefetch_report(), when
+    #                                        prefetch or residency ran
 
     @property
     def mean_batch(self) -> float:
@@ -417,8 +421,12 @@ class ServingLoop:
         return self.finish()
 
     def finish(self) -> ServeResult:
-        """Close the session and build its ``ServeResult``."""
-        queue = self._queue
+        """Close the session and build its ``ServeResult``; the engine's
+        prefetch executor is joined (it starts again on a later fetch)."""
+        eng, queue = self.engine, self._queue
+        eng.close()
+        prefetch_stats = (eng.prefetch_report()
+                          if eng.prefetch is not None or eng.residency is not None else None)
         kv_stats = None
         if self.kv_pool is not None:
             kv_stats = self.kv_pool.stats.as_dict()
@@ -436,8 +444,8 @@ class ServingLoop:
             tpot_slo_s=[s.request.tpot_slo_s for s in states.values()])
         outputs = {rid: np.asarray(s.generated, np.int32) for rid, s in states.items()}
         return ServeResult(outputs=outputs, timings=timings, trace=self._trace,
-                           steps=self._steps, states=states,
-                           n_workers=self.engine.sched.n_workers, kv_stats=kv_stats)
+                           steps=self._steps, states=states, n_workers=eng.sched.n_workers,
+                           kv_stats=kv_stats, prefetch_stats=prefetch_stats)
 
     # ------------------------------------------------------ composed step
     def _decode_composed(self, batch: List[RequestState], clock: DecodeClock,

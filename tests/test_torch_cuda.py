@@ -1,9 +1,10 @@
 """Card-only tests of the port: the hand-written CUDA grouped FFN, its
-packed-weight twin, flash-decode attention and the SSD inter-chunk scan
-against their plain PyTorch versions (and the two FFNs against each
-other), their invariances and refusals, the engine on the card
-(full-width and packed-resident slots) and the serving loop on the card
-against solo decoding, attention-only and hybrid.
+packed-weight twin, flash-decode attention, the SSD inter-chunk scan and
+the w8a16 matmul against their plain PyTorch versions (and the two FFNs
+against each other), their invariances and refusals, the engine on the
+card (full-width and packed-resident slots, with prefetch on a side
+stream and residency) and the serving loop on the card against solo
+decoding, attention-only and hybrid.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -13,9 +14,10 @@ JAX package, so it runs on a machine that has only PyTorch:
 import pytest
 import torch
 
-from repro_torch.core import ODMoEEngine
+from repro_torch.core import ChaosExecutor, ODMoEEngine
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_kernel, flash_decode_ref
 from repro_torch.kernels.flash_decode import kernel as flash_lib
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_kernel, int8_matmul_ref
 from repro_torch.kernels.moe_gemm import (grouped_topk_contrib, grouped_topk_contrib_packed,
                                           moe_ffn, moe_ffn_kernel, moe_ffn_packed,
                                           moe_ffn_packed_kernel, moe_ffn_packed_ref,
@@ -520,3 +522,102 @@ def test_hybrid_served_tokens_equal_solo_greedy_on_the_card(dev):
         solo = greedy_generate(HYBRID, params, {"tokens": torch.as_tensor(r.prompt, device=dev)
                                                 [None, :]}, r.max_new_tokens)
         assert solo[0].cpu().tolist() == res.outputs[r.rid].tolist(), r.rid
+
+
+# --------------------------------------------------------------- int8 matmul
+# the shapes of tests/test_kernels.py::test_int8_matmul_sweep and the
+# Mixtral-8x7B expert matrices, at M in {1, 4, 8}
+INT8 = ([(32, 128, 64), (64, 256, 96), (13, 70, 33), (1, 70, 33), (8, 70, 33)]
+        + [(m, k, n) for m in (1, 4, 8) for k, n in ((4096, 14336), (14336, 4096))])
+
+
+def _int8(dev, m, k, n, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((n,), generator=g, device=dev) * 9e-3 + 1e-3
+    return x, wq, sc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", INT8)
+def test_int8_kernel_matches_plain_version_and_repeats_bitwise(dev, m, k, n, dtype):
+    x, wq, sc = _int8(dev, m, k, n, dtype, seed=m + k + n)
+    got = int8_matmul_kernel(x, wq, sc)
+    want = int8_matmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= REL_TOL * float(want.abs().max())
+    assert torch.equal(int8_matmul_kernel(x, wq, sc), got)
+
+
+def test_int8_kernel_misaligned_or_odd_weights_take_the_scalar_path(dev):
+    """A weight pointer off its 4-byte alignment reads byte by byte and
+    gives the same bits as the char4 loads."""
+    x, wq, sc = _int8(dev, 4, 300, 128, torch.float32, seed=5)
+    shifted = torch.empty(wq.numel() + 1, dtype=torch.int8, device=dev)[1:].view(wq.shape)
+    shifted.copy_(wq)
+    assert shifted.data_ptr() % 4 != 0
+    assert torch.equal(int8_matmul_kernel(x, shifted, sc), int8_matmul_kernel(x, wq, sc))
+
+
+def test_int8_kernel_counts_launches_and_the_op_routes_to_it(dev):
+    x, wq, sc = _int8(dev, 3, 64, 40, torch.bfloat16)
+    before = int8_matmul_kernel.launches
+    out = int8_matmul(x, wq, sc)
+    assert int8_matmul_kernel.launches == before + 1
+    assert torch.equal(out, int8_matmul_kernel(x, wq, sc))
+    int8_matmul(x.cpu(), wq.cpu(), sc.cpu())          # the host's plain path
+    assert int8_matmul_kernel.launches == before + 2
+
+
+def test_int8_kernel_refuses_bad_inputs(dev):
+    x, wq, sc = _int8(dev, 3, 64, 40, torch.float32)
+    before = int8_matmul_kernel.launches
+    with pytest.raises(ValueError):
+        int8_matmul_kernel(x.cpu(), wq.cpu(), sc.cpu())
+    with pytest.raises(TypeError):
+        int8_matmul_kernel(x.half(), wq, sc)
+    with pytest.raises(TypeError):
+        int8_matmul_kernel(x, wq.int(), sc)
+    with pytest.raises(TypeError):
+        int8_matmul_kernel(x, wq, sc.double())
+    with pytest.raises(ValueError):
+        int8_matmul_kernel(x, wq[:32], sc)
+    with pytest.raises(ValueError):
+        int8_matmul_kernel(x, wq.t().contiguous().t(), sc)
+    with pytest.raises(ValueError):
+        int8_matmul_kernel(x[:0], wq, sc)
+    assert int8_matmul_kernel.launches == before
+
+
+# ------------------------------------------------------- prefetch on the card
+@pytest.mark.parametrize("packed", [False, True])
+def test_prefetch_and_residency_on_the_card_equal_sync_and_greedy(dev, packed):
+    """Fetches on a side stream, joined by events: under threads and under
+    a chaos schedule the tokens equal ``greedy_generate`` and the events
+    and bytes the synchronous engine's (with and without residency)."""
+    cfg = ModelConfig(name="t-moe", family="moe", num_layers=4, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=0, d_expert=128,
+                      vocab_size=97, num_experts=8, top_k=2)
+    params = init_params(cfg, seed=3, device=dev)
+    batch = {"tokens": torch.randint(0, 97, (2, 12), generator=torch.Generator()
+                                     .manual_seed(4), dtype=torch.int32).to(dev)}
+    transport = "int8" if packed else None
+    ref = greedy_generate(cfg, params, batch, 8, transport=transport)
+
+    def run(prefetch, residency):
+        eng = ODMoEEngine(cfg, params, device=dev, prefetch=prefetch, residency=residency,
+                          transport=transport, packed_slots=packed)
+        toks, _ = eng.generate(batch, 8)
+        eng.close()
+        return toks, [(e.token, e.layer, e.expert, e.worker, e.bytes)
+                      for e in eng.slots.events], eng.prefetch_report()
+
+    for residency in (None, "lru"):
+        base = run(None, residency)
+        for prefetch in ("thread", ChaosExecutor(7, p_drop=0.3, p_defer=0.3)):
+            toks, events, rep = run(prefetch, residency)
+            assert torch.equal(toks, ref)
+            assert events == base[1]
+            assert rep["bytes_moved"] == base[2]["bytes_moved"]

@@ -135,14 +135,91 @@ def test_cacheless_after_generate(setup):
         eng.slots.stats["loads"]
 
 
+@pytest.mark.parametrize("transport", [None, "int8"])
+def test_shared_store_equals_own_store(setup, transport):
+    """An engine handed another engine's store decodes as one that packed
+    its own: tokens, load events and bytes."""
+    _, _, tcfg, tparams, toks = setup
+    batch = {"tokens": torch.from_numpy(toks)}
+    first = ODMoEEngine(tcfg, tparams, n_workers=8, predictor="sep", transport=transport,
+                        device="cpu")
+    out = []
+    for eng in (first, ODMoEEngine(tcfg, tparams, n_workers=8, predictor="sep",
+                                   transport=transport, store=first.store, device="cpu")):
+        got, _ = eng.generate(batch, N_TOK)
+        out.append((got.numpy().tolist(), [(e.token, e.layer, e.expert, e.worker, e.bytes)
+                                           for e in eng.slots.events],
+                    eng.slots.bytes_moved))
+    assert out[0] == out[1]
+    assert out[0][2] > 0
+
+
+def test_shared_store_of_another_policy_raises_as_jax_does(setup):
+    cfg, params, tcfg, tparams, _ = setup
+    jstore = JEngine(cfg, params, n_workers=8, predictor="sep").store
+    with pytest.raises(ValueError, match="transport policy differs"):
+        JEngine(cfg, params, n_workers=8, predictor="sep", transport="int8", store=jstore)
+    store = ODMoEEngine(tcfg, tparams, predictor="sep", device="cpu").store
+    with pytest.raises(ValueError, match="transport policy differs"):
+        ODMoEEngine(tcfg, tparams, predictor="sep", transport="int8", store=store,
+                    device="cpu")
+
+
 @pytest.mark.parametrize("kw", [
-    {"speculate": 2}, {"prefetch": "sync"}, {"residency": "lru"},
-    {"profiles": [object()] * 8}, {"faults": object()}, {"compute_vs_ship": True},
-    {"wave_compute": "loop"}])
+    {"speculate": 2}, {"profiles": [object()] * 8}, {"faults": object()},
+    {"compute_vs_ship": True}, {"wave_compute": "loop"}])
 def test_unported_engine_options_raise(setup, kw):
     _, _, tcfg, tparams, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ODMoEEngine(tcfg, tparams, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("periods", [(0, 0), (2, 3), (0, 1), (3, 0)])
+def test_alignment_policies_match_jax(setup, periods):
+    """Token and KV alignment every N steps (0 = never): the engines agree
+    on tokens, every ``LayerRecord``, the load events and recall."""
+    cfg, params, _, _, toks = setup
+    jeng = JEngine(cfg, params, n_workers=8, predictor="sep")
+    jout, jtrace = jeng.generate({"tokens": jnp.asarray(toks)}, N_TOK, JAlign(*periods))
+    _, _, tcfg, tparams, _ = setup
+    eng = ODMoEEngine(tcfg, tparams, n_workers=8, predictor="sep", device="cpu")
+    out, trace = eng.generate({"tokens": torch.from_numpy(toks)}, N_TOK,
+                              AlignmentPolicy(*periods))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    assert _records(trace) == _records(jtrace)
+    assert [(r.aligned_token, r.aligned_kv) for r in trace.records] == \
+        [(r.aligned_token, r.aligned_kv) for r in jtrace.records]
+    assert _events(eng.slots.events) == _events(jeng.slots.events)
+    assert trace.recall() == jtrace.recall()
+
+
+def test_cli_passes_the_alignment_periods(setup, monkeypatch, capsys):
+    """``--token-period`` / ``--kv-period`` reach ``generate`` and the
+    serving loop as an ``AlignmentPolicy``."""
+    from repro_torch.launch import serve as cli
+    seen = []
+    real = ODMoEEngine.generate
+
+    def spy(self, batch, num_tokens, policy=AlignmentPolicy(1, 1)):
+        seen.append(policy)
+        return real(self, batch, num_tokens, policy)
+
+    monkeypatch.setattr(ODMoEEngine, "generate", spy)
+    cli.main(["--device", "cpu", "--tokens", "4", "--prompt-len", "8",
+              "--token-period", "2", "--kv-period", "3"])
+    assert seen == [AlignmentPolicy(2, 3)]
+    loops = []
+
+    class Spy(cli.ServingLoop):
+        def __init__(self, *args, policy, **kw):
+            loops.append(policy)
+            super().__init__(*args, policy=policy, **kw)
+
+    monkeypatch.setattr(cli, "ServingLoop", Spy)
+    cli.main(["--device", "cpu", "--requests", "2", "--arrival-rate", "0", "--tokens", "3",
+              "--prompt-len", "6", "--token-period", "0", "--kv-period", "2"])
+    assert loops == [AlignmentPolicy(0, 2)]
+    assert "per-request tokens == solo reference" in capsys.readouterr().out
 
 
 def test_engine_checks_its_device(setup):

@@ -360,3 +360,42 @@ def test_cli_serving_mode_on_the_host(served, capsys):
     assert "measured composed decode step on cpu" in text
     assert out["launches_serving"]["flash_decode"] == 0          # the host runs the plain path
     assert len(out["result"].outputs) == 3
+    assert out["build_peak_bytes"] is None and out["serving_peak_bytes"] is None
+    assert "peak allocated device memory" not in text            # a card's counter only
+
+
+@pytest.mark.parametrize("model", ["tiny_moe", "tiny_hybrid"])
+def test_stored_request_state_holds_only_its_own_bytes(model):
+    """After a composed step, each request's stored cache list and shadow
+    state lie in storage of their own: a stored request does not keep the
+    composed batch alive.  Their values are the composed batch's rows."""
+    from repro_torch.core import slice_cache_list
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import tree_leaves
+    from test_torch_hybrid import tiny_hybrid
+    tcfg = torch_cfg(tiny_moe() if model == "tiny_moe" else tiny_hybrid())
+    tparams = init_params(tcfg, seed=0, device="cpu")
+    eng = ODMoEEngine(tcfg, tparams, n_workers=8, predictor="sep", device="cpu")
+    gen = np.random.default_rng(5)
+    batches = [{"tokens": torch.from_numpy(gen.integers(0, tcfg.vocab_size, (1, n)))}
+               for n in (9, 12, 10)]
+    toks, caches, pos = zip(*(eng.prefill_request(b, 24) for b in batches))
+    shadow = concat_shadow_states([eng.shadow.prefill_state(b, 24) for b in batches])
+    preds, shadow = eng.shadow.step_state(shadow, shadow["token"])
+    rec = TokenRecord(index=1, aligned_token=False, aligned_kv=False)
+    _, composed, _ = eng.decode_batch(torch.cat(toks), concat_cache_lists(list(caches)),
+                                      torch.cat(pos), preds, 1, rec)
+
+    def own(leaf):
+        return leaf.untyped_storage().nbytes() == leaf.numel() * leaf.element_size()
+
+    for i in range(len(batches)):
+        mine = slice_cache_list(composed, i)
+        for li, layer in enumerate(mine):
+            for name, leaf in layer.items():
+                assert own(leaf), (i, li, name)
+                assert torch.equal(leaf, composed[li][name][i:i + 1])
+        st = slice_shadow_state(shadow, i)
+        assert all(own(leaf) for leaf in tree_leaves(st))
+        for c_st, c_all in zip(st["caches"], shadow["caches"]):
+            assert all(torch.equal(c_st[k], c_all[k][:, i:i + 1]) for k in c_st)
