@@ -15,11 +15,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
              print ptxas's register and spill lines.
 3. kernel  — hold the grouped FFN against its plain PyTorch version at the
              decode and prefill paths' shapes (D=4096, F=14336, bf16
-             weights, E in {1,2,8,16}, C in {1,2,16,64}), check that
-             per-(row, expert) outputs are bitwise equal across E and C,
-             time a prefill's row blocks at three expert-row budgets, and
-             time the kernel, its bound, the plain version and a torch.bmm
-             formula.
+             weights, on tensor cores, E in {1,2,8,16}, C in {1,2,16,64}),
+             check that per-(row, expert) outputs are bitwise equal across
+             E and C, time a prefill's row blocks at three expert-row
+             budgets (the largest the bf16 default), time the kernel at
+             E/C = 2/1, 8/1, 8/16 and 16/64 beside its bound (bytes against
+             fp32 FMAs, and against the bf16 tensor rate for the MMAs it
+             issues), the plain version and a torch.bmm formula, and
+             profile its passes.
 4. packed  — the packed kernel on fp16, int8 and nf4 parts at the same
              shapes: bitwise equal to the grouped FFN on the dequantized
              weights, within tolerance of its plain version, bitwise
@@ -32,16 +35,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
              and 1040 being the Jamba phases' widths; unfilled slots, ring
              wrap, window in {0, W/2}): within tolerance, each row bitwise
              equal to its own B=1 launch, and bitwise equal when W grows by
-             two chunks of masked slots; timed beside its bytes bound, its
-             plain version and ``scaled_dot_product_attention``.
+             two chunks of masked slots; timed at the serve steps' B=4 and
+             B=16 W=144 and at long windows beside its bytes bound, its
+             plain version and ``scaled_dot_product_attention``; its one
+             launch profiled.
 6. small   — the port's model on the card against its plain CPU path on
              a small fp32 MoE config: logits close, tokens equal.
 7. slice   — ``repro_torch.launch.serve.serve_single`` at Mixtral-8x7B
              width (4 layers, no expert padding), SEP int8 shadow, fp32
              transport: engine tokens must equal the port's
              ``greedy_generate`` and the kernel must have launched on both
-             sides.  Then each part of a decoded token (one expert load,
-             the shadow step, a dense decode step) is timed alone.
+             sides.  Then the engine's prefill and each part of a decoded
+             token (one expert load, the shadow step, a dense decode step)
+             are timed alone.
 8. serve   — ``repro_torch.launch.serve.serve_traffic`` on the slice's
              parameters: 8 burst requests (prompts 64-128, up to 8 new
              tokens), max batch 4, overlap composition, a KV pool of 16-slot
@@ -82,7 +88,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              shadow, fp32 transport, a 1000-token prompt (4 chunks, the last
              padded by 24) and 8 new tokens: engine tokens equal the port's
              ``greedy_generate``, and ssd_scan, moe_ffn and flash_decode
-             launched on both sides; then the parts of a decoded token.
+             launched on both sides; then the engine's prefill and the
+             parts of a decoded token.
 12. jamba-serve — ``serve_traffic`` on the same parameters: 4 burst
              requests (prompts 512-1023), max batch 4, overlap composition, a
              KV pool of 16-slot pages at half the dense footprint of 4
@@ -115,6 +122,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12      # bf16 tensor cores, dense
 D_MODEL, D_EXPERT = 4096, 14336
 N_KV, GROUP, HEAD_DIM = 8, 4, 128  # Mixtral-8x7B attention: 8 kv heads, 32 query heads
 KERNEL_TOL = 1e-4                 # max|k - p| / max|p|: fp32 sums in two orders
@@ -185,6 +193,20 @@ def bound_ms(e: int, c: int, weight_bytes: int) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bound_tc_ms(e: int, c: int, issued: bool) -> tuple:
+    """The grouped FFN's bytes against the bf16 tensor rate: for the
+    function's own products (one per product, C rows), or, with ``issued``,
+    for the MMAs the bf16 design issues (rows padded to its row tile of 8,
+    16, 32 or 64, two MMAs per product: x, and hu, split into two bf16
+    terms).  Printed only; the kernels line carries ``bound_ms``."""
+    tile = 8 if c <= 8 else 16 if c <= 16 else 32 if c <= 32 else 64
+    rows, mmas = (-(-c // tile) * tile, 2) if issued else (c, 1)
+    nbytes = 4 * e * c * D_MODEL * 2 + 3 * e * D_MODEL * D_EXPERT * 2
+    flops = 2 * mmas * 3 * e * rows * D_MODEL * D_EXPERT
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernel() -> dict:
     import torch
     import torch.nn.functional as F
@@ -233,16 +255,26 @@ def phase_kernel() -> dict:
         return torch.bmm(hu, wd[:e])
 
     rows = {}
-    for e, c in ((2, 1), (8, 1), (8, 16)):
+    for e, c in ((2, 1), (8, 1), (8, 16), (16, 64)):
         xd = x[:c].expand(e, c, D_MODEL).contiguous()
         t_k = time_ms(lambda: moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e]))
         t_p = time_ms(lambda: moe_ffn_ref(xd, wg[:e], wu[:e], wd[:e]), iters=5)
         t_l = time_ms(lambda: library(xd, e))
+        t_k2 = time_ms(lambda: moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e]))
         b_ms, b_by = bound_ms(e, c, 2)
+        fn_ms, fn_by = bound_tc_ms(e, c, issued=False)
+        tc_ms, tc_by = bound_tc_ms(e, c, issued=True)
         rows[(e, c)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                             bound_by=b_by, max_abs_err=errs[(e, c)][0])
-        print(f"[kernel] time E={e} C={c:2d}: kernel {t_k:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), plain {t_p:.4f} ms, torch.bmm bf16 formula {t_l:.4f} ms")
+        print(f"[kernel] time E={e:2d} C={c:2d}: kernel {t_k:.4f} ms (again after the "
+              f"formula: {t_k2:.4f} ms), torch.bmm bf16 formula {t_l:.4f} ms, plain "
+              f"{t_p:.4f} ms; bound {b_ms:.4f} ms ({b_by}; its operations at the fp32 FMA "
+              f"rate, which this tensor-core path does not run on, so no share of it is "
+              f"given); at the bf16 tensor rate: the function's products {fn_ms:.4f} ms "
+              f"({fn_by}, {fn_ms / t_k:.1%} of the kernel's time), the MMAs the design "
+              f"issues (rows padded to the row tile, two per product) {tc_ms:.4f} ms "
+              f"({tc_by}, {tc_ms / t_k:.1%})", flush=True)
+    kernel_pass_profile(x, wg, wu, wd)
     moe_ffn_kernel.launches = 0         # comparison launches do not count
     del wg, wu, wd, outs
     torch.cuda.empty_cache()
@@ -252,24 +284,25 @@ def phase_kernel() -> dict:
 def row_block_times(x, wg, wu, wd) -> None:
     """The cost of the grouped FFN's row blocks: one prefill's expert FFN
     (Jamba's 1000 rows over 16 experts, a Mixtral serve prompt's 127 rows
-    over 8) at three expert-row budgets.  A smaller budget means more
-    calls, each of which reads every expert's weights again; a larger one
-    a larger workspace."""
+    over 8) at three expert-row budgets for bf16 weights, the largest the
+    default (``MAX_EXPERT_ROWS_BF16``).  A smaller budget means more calls,
+    each of which reads every expert's weights again; a larger one a larger
+    workspace."""
     import torch
     from repro_torch.kernels.moe_gemm import kernel as moe_kernel
     from repro_torch.kernels.moe_gemm import ops
     gen = torch.Generator(device="cuda").manual_seed(1)
-    saved = ops.MAX_EXPERT_ROWS
+    saved = ops.MAX_EXPERT_ROWS_BF16
     for e, n in ((16, JAMBA_PROMPT), (8, 127)):
         h = x[:n]
         slot = torch.stack([torch.randperm(e, generator=gen, device="cuda")[:2]
                             for _ in range(n)]).int()
         gates = torch.rand((n, 2), generator=gen, device="cuda")
         ref = None
-        for budget in (512, 1024, 2048):
-            ops.MAX_EXPERT_ROWS = budget
+        for budget in (1024, 4096, saved):
+            ops.MAX_EXPERT_ROWS_BF16 = budget
             rows = min(budget // e, 1 << (n - 1).bit_length())
-            ws = moe_kernel.LIBRARY.lib.moe_ffn_workspace_floats(e, rows, D_MODEL, D_EXPERT) * 4
+            ws = moe_kernel.workspace_bytes(e, rows, D_MODEL, D_EXPERT, torch.bfloat16)
             out = ops.grouped_topk_contrib(h, wg[:e], wu[:e], wd[:e], slot, gates)
             if ref is None:
                 ref = out
@@ -278,13 +311,42 @@ def row_block_times(x, wg, wu, wd) -> None:
             t_ms = median_ms(lambda: ops.grouped_topk_contrib(h, wg[:e], wu[:e], wd[:e],
                                                               slot, gates),
                              iters=3, warmup=1, device_only=False)
-            print(f"[kernel] row blocks E={e} N={n}: budget {budget} expert-rows -> "
-                  f"{-(-n // rows)} call(s) of {rows} rows, workspace {ws / 1e9:.2f} GB a "
-                  f"call, {t_ms:.3f} ms (CUDA events, host launches included, median of 3); "
-                  f"output bitwise equal across budgets", flush=True)
+            print(f"[kernel] row blocks E={e} N={n}: budget {budget} expert-rows"
+                  f"{' (the default)' if budget == saved else ''} -> {-(-n // rows)} call(s) of "
+                  f"{rows} rows, workspace {ws / 1e9:.3f} GB a call, {t_ms:.3f} ms (CUDA "
+                  f"events, host launches included, median of 3); output bitwise equal across "
+                  f"budgets", flush=True)
             del out
         torch.cuda.empty_cache()
-    ops.MAX_EXPERT_ROWS = saved
+    ops.MAX_EXPERT_ROWS_BF16 = saved
+
+
+def kernel_pass_profile(x, wg, wu, wd):
+    """Device time of each launch of the bf16 grouped FFN (split x, gate/up
+    with SwiGLU, down) at a decode wave's and a prefill block's shape, from
+    ``torch.profiler``'s CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.moe_gemm import moe_ffn_kernel
+    for e, c in ((2, 1), (16, 64)):
+        xd = x[:c].expand(e, c, D_MODEL).contiguous()
+        moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
+            torch.cuda.synchronize()
+        parts = [f"{_kernel_name(ev.key)} {ev.device_time / 1e3:.4f} ms"
+                 for ev in prof.key_averages() if ev.device_time > 0]
+        print(f"[kernel] passes at E={e} C={c} (torch.profiler, mean of 5): " + "; ".join(parts),
+              flush=True)
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key without its return type, anonymous namespace and
+    argument list."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0]
 
 
 PACKED_SCHEMES = ("fp16", "int8", "nf4")
@@ -496,7 +558,7 @@ def phase_flash() -> dict:
     print(f"[flash] worst max|k-p|/max|p| {worst:.3e} (tolerance {KERNEL_TOL:g})")
     torch.cuda.empty_cache()
     rows = {}
-    for b, w in ((4, 144), (1, 4096), (4, 32768), (16, 32768)):
+    for b, w in ((4, 144), (16, 144), (1, 4096), (4, 32768), (16, 32768)):
         q, k, v, kpos, pos = flash_inputs(b, w, torch.bfloat16, seed=3)
         qs = q.reshape(b, N_KV * GROUP, 1, HEAD_DIM)
         ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
@@ -518,15 +580,17 @@ def phase_flash() -> dict:
               f"scaled_dot_product_attention {t_l:.4f} ms (device time, median of 25 / 20 / 25 "
               f"launches); kernel with the host's launch time {t_host:.4f} ms", flush=True)
         del q, k, v, kpos, pos, qs, ks, vs, mask
+    flash_pass_profile(4, 144)
     flash_pass_profile(4, 32768)
     flash_decode_kernel.launches = 0       # comparison launches do not count
+    flash.release_scratch()                # the B=16 W=32768 workspace stays out of later peaks
     torch.cuda.empty_cache()
     return rows
 
 
 def flash_pass_profile(b, w):
-    """Device time of the kernel's two passes (chunk partials, combine) at
-    one shape, from ``torch.profiler``'s CUDA activity."""
+    """Device time of the kernel's launches (one since the combine joined
+    the chunk pass) at one shape, from ``torch.profiler``'s CUDA activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_decode import flash_decode_kernel
@@ -537,14 +601,10 @@ def flash_pass_profile(b, w):
         for _ in range(10):
             flash_decode_kernel(q, k, v, kpos, pos)
         torch.cuda.synchronize()
-    parts = []
-    for e in prof.key_averages():
-        name = "chunk" if "chunk_kernel" in e.key else "combine" if "combine_kernel" in e.key \
-            else None
-        if name:
-            parts.append(f"{name} {e.device_time / 1e3:.4f} ms")
-    print(f"[flash] passes at bf16 B={b} W={w} (torch.profiler, mean of 10): "
-          + ", ".join(parts))
+    parts = [f"{_kernel_name(e.key)} {e.device_time / 1e3:.4f} ms x {e.count // 10}"
+             for e in prof.key_averages() if e.device_time > 0]
+    print(f"[flash] launches at bf16 B={b} W={w} (torch.profiler, mean of 10; x launches a "
+          f"call): " + ", ".join(parts))
 
 
 def phase_small():
@@ -631,7 +691,12 @@ def phase_slice() -> dict:
           f"bytes_moved {eng.slots.bytes_moved}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     phase_breakdown(cfg, params, eng, res)
-    return {"launches": res["launches_engine"]["moe_ffn"], "cfg": cfg, "params": params}
+    prefill = engine_prefill_ms(eng, cfg, args.prompt_len, args.tokens, args.seed)
+    print(f"[slice] engine prefill of the {args.prompt_len}-token prompt (main model, then the "
+          f"SEP shadow; CUDA-synchronized host clock, median of 3): {prefill:.3f} ms",
+          flush=True)
+    return {"launches": res["launches_engine"]["moe_ffn"], "cfg": cfg, "params": params,
+            "prefill_ms": prefill}
 
 
 SERVE_SEED = 4     # the first make_traffic seed whose burst makes the half-dense pool preempt
@@ -1075,6 +1140,21 @@ def _median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def engine_prefill_ms(eng, cfg, prompt_len: int, tokens: int, seed: int) -> float:
+    """The engine's prefill of the phase's prompt as ``generate`` runs it:
+    the main model (``prefill_request``; every MoE layer's experts through
+    the grouped FFN), then the SEP shadow's.  Host clock around work that
+    ends in a synchronize, median of 3."""
+    from repro_torch.launch.serve import _prompt
+    batch = _prompt(cfg, prompt_len, seed, eng.device)
+
+    def run():
+        eng.prefill_request(batch, prompt_len + tokens)
+        if eng.shadow is not None:
+            eng.shadow.reset(batch, prompt_len + tokens)
+    return _median_ms(run, reps=3)
+
+
 def phase_breakdown(cfg, params, eng, res):
     """Where a decoded token's time goes: the parts of one engine step,
     each timed alone on the slice's own tensors (host clock around work
@@ -1293,8 +1373,12 @@ def phase_jamba_slice() -> dict:
           f"of which padding h ({state['h'].numel() * 4} bytes a row) to 8 rows {pad_ms:.3f} "
           f"ms; a token's loads take {parts['loads_per_token'] * parts['load_ms']:.3f} ms",
           flush=True)
+    prefill = engine_prefill_ms(eng, cfg, JAMBA_PROMPT, args.tokens, 0)
+    print(f"[jamba-slice] engine prefill of the {JAMBA_PROMPT}-token prompt (main model, then "
+          f"the SEP shadow; CUDA-synchronized host clock, median of 3): {prefill:.3f} ms",
+          flush=True)
     return {"launches": engine, "cfg": cfg, "params": params, "tpot_ms": tpot,
-            "peak_gb": peak}
+            "peak_gb": peak, "prefill_ms": prefill}
 
 
 def phase_jamba_serve(cfg, params) -> dict:
@@ -1392,6 +1476,9 @@ def main():
                        ("jamba-serve", jamba_serve)))
           + "; prefetch runs, peak while decoding: "
           + ", ".join(f"{n} {r['peak_gb']:.2f}" for n, r in prefetch["runs"].items()) + " GB")
+    print(f"[prefill] engine prefill (main model, then the SEP shadow): slice "
+          f"{moe['prefill_ms']:.3f} ms (16 tokens), jamba-slice {jamba['prefill_ms']:.3f} ms "
+          f"({JAMBA_PROMPT} tokens)")
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",

@@ -1,9 +1,11 @@
 """Hand-written CUDA grouped expert FFN (``csrc/moe_ffn.cu``), bound with ctypes.
 
-Replaces ``repro/kernels/moe_gemm/kernel.py:61 moe_ffn_kernel``.  The
-library is built by :mod:`repro_torch.kernels._nvcc` on first use; hosts
-without ``nvcc`` import this module freely, and only a launch needs the
-card.
+Replaces ``repro/kernels/moe_gemm/kernel.py:61 moe_ffn_kernel``.  bf16
+weights run on tensor cores (``csrc/moe_ffn_mma.cuh``), fp32 weights on the
+CUDA-core passes the packed kernel shares (``csrc/moe_ffn_common.cuh``).
+The library is built by :mod:`repro_torch.kernels._nvcc` on first use;
+hosts without ``nvcc`` import this module freely, and only a launch needs
+the card.
 """
 from __future__ import annotations
 
@@ -13,18 +15,48 @@ import torch
 
 from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
 
-_WEIGHT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _bind(lib) -> None:
-    lib.moe_ffn_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    lib.moe_ffn_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.moe_ffn_launch.restype = ctypes.c_int
-    lib.moe_ffn_workspace_floats.argtypes = [ctypes.c_int] * 4
-    lib.moe_ffn_workspace_floats.restype = ctypes.c_longlong
+    lib.moe_ffn_bf16_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.moe_ffn_bf16_launch.restype = ctypes.c_int
+    for name in ("moe_ffn_workspace_floats", "moe_ffn_bf16_workspace_bytes",
+                 "moe_ffn_bf16_counters"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 4
+        getattr(lib, name).restype = ctypes.c_longlong
 
 
-LIBRARY = CudaLibrary("moe_ffn", "moe_ffn.cu", headers=("moe_ffn_common.cuh",), bind=_bind)
+LIBRARY = CudaLibrary("moe_ffn", "moe_ffn.cu", headers=("moe_ffn_common.cuh", "moe_ffn_mma.cuh"),
+                      bind=_bind)
+
+# (device index, stream) -> the bf16 path's tile counters, grown on demand.
+# The kernel leaves them at zero and launches on one stream run one after
+# another, so they share one array; another stream gets its own.
+_COUNTERS: dict = {}
+
+
+def _counters(device, stream: int, n: int):
+    key = (device.index, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros((max(n, 1),), dtype=torch.int32, device=device)
+        _COUNTERS[key] = counters
+    return counters
+
+
+def workspace_bytes(e: int, c: int, d: int, f: int, dtype) -> int:
+    """Bytes of workspace one call at these sizes allocates on the current
+    device (x's and hu's split terms and, at small C, segment partials
+    for bf16 weights; per-segment partials for fp32 weights)."""
+    lib = LIBRARY.lib
+    if dtype == torch.bfloat16:
+        return int(lib.moe_ffn_bf16_workspace_bytes(e, c, d, f))
+    return 4 * int(lib.moe_ffn_workspace_floats(e, c, d, f))
 
 
 def moe_ffn_kernel(xd, w_gate, w_up, w_down):
@@ -48,14 +80,20 @@ def moe_ffn_kernel(xd, w_gate, w_up, w_down):
     if min(e, c, d, f) <= 0:
         raise ValueError("moe_ffn_kernel needs non-empty E, C, D and F")
     lib = LIBRARY.lib
-    ws = torch.empty((lib.moe_ffn_workspace_floats(e, c, d, f),), dtype=torch.float32,
-                     device=xd.device)
     y = torch.empty((e, c, d), dtype=torch.float32, device=xd.device)
     with torch.cuda.device(xd.device):
         stream = torch.cuda.current_stream(xd.device).cuda_stream
-        err = lib.moe_ffn_launch(xd.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-                                  w_down.data_ptr(), ws.data_ptr(), y.data_ptr(),
-                                  e, c, d, f, _WEIGHT_DTYPES[wdt], stream)
+        ptrs = (xd.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr())
+        if wdt == torch.bfloat16:
+            ws = torch.empty((lib.moe_ffn_bf16_workspace_bytes(e, c, d, f),),
+                             dtype=torch.uint8, device=xd.device)
+            counters = _counters(xd.device, stream, lib.moe_ffn_bf16_counters(e, c, d, f))
+            err = lib.moe_ffn_bf16_launch(*ptrs, ws.data_ptr(), counters.data_ptr(),
+                                          y.data_ptr(), e, c, d, f, stream)
+        else:
+            ws = torch.empty((lib.moe_ffn_workspace_floats(e, c, d, f),), dtype=torch.float32,
+                             device=xd.device)
+            err = lib.moe_ffn_launch(*ptrs, ws.data_ptr(), y.data_ptr(), e, c, d, f, stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn kernel launch failed: cudaError {err}")
     moe_ffn_kernel.launches += 1

@@ -99,21 +99,29 @@ def _grouped_contrib_packed(h, parts, slot, gates, *, scheme: str):
 
 
 # Expert-rows per grouped-FFN call.  Every (padded) expert runs every row
-# of a call, and the kernel's workspace grows with experts x rows: about
-# 2.6 MB per expert-row at D=4096, F=14336, so a 1000-token prefill over
-# 16 experts in one call would ask for 43 GiB.  A longer row set runs in
-# blocks of ``MAX_EXPERT_ROWS // experts`` rows (64 for 16 experts, 128 for
-# 8, so a Mixtral prompt of up to 128 tokens is still one call), about
-# 2.7 GB of workspace at that width.  Each further block reads every
-# expert's weights again.  A row's bits depend on neither the kernel's nor
-# the plain version's row count, so the split changes no bit.
+# of a call, and the kernel's workspace grows with experts x rows.  On fp32
+# weights (and the packed kernel, which shares their passes) that is about
+# 2.6 MB per expert-row at D=4096, F=14336, so a 1000-token prefill over 16
+# experts in one call would ask for 43 GiB: a longer row set runs in blocks
+# of ``MAX_EXPERT_ROWS // experts`` rows (64 for 16 experts, 128 for 8), and
+# each further block reads every expert's weights again.  On bf16 weights
+# the workspace holds only x's and hu's split terms, about 74 KB per
+# expert-row at that width, so a block is ``MAX_EXPERT_ROWS_BF16 //
+# experts`` rows (1024 for 16 experts: a Jamba prompt of up to 1024 tokens
+# is one call, 1.2 GB of workspace).  A row's bits depend on neither the
+# kernel's nor the plain version's row count, so the split changes no bit.
 MAX_EXPERT_ROWS = 1024
+MAX_EXPERT_ROWS_BF16 = 16384
 
 
-def _row_chunks(fn, h, slot, gates, experts: int):
-    """``fn(h, slot, gates)`` over blocks of at most ``MAX_EXPERT_ROWS //
+def _row_budget(dtype) -> int:
+    return MAX_EXPERT_ROWS_BF16 if dtype == torch.bfloat16 else MAX_EXPERT_ROWS
+
+
+def _row_chunks(fn, h, slot, gates, experts: int, budget: int):
+    """``fn(h, slot, gates)`` over blocks of at most ``budget //
     pow2(experts)`` rows."""
-    n, step = slot.shape[0], max(1, MAX_EXPERT_ROWS // _pow2(max(experts, 1)))
+    n, step = slot.shape[0], max(1, budget // _pow2(max(experts, 1)))
     if n <= step:
         return fn(h, slot, gates)
     return torch.cat([fn(h[i:i + step], slot[i:i + step], gates[i:i + step])
@@ -143,15 +151,16 @@ def grouped_topk_contrib(h, w_gate, w_up, w_down, slot, gates):
     pair's value does not depend on which other experts or rows rode
     along, so wave partitioning never changes a request's arithmetic.
 
-    Rows run in blocks of at most ``MAX_EXPERT_ROWS // experts``; a
-    block's row axis pads to its pow2 bucket (cheap: h/slot/gates only);
-    the expert axis pads inside ``_grouped_contrib``.
+    Rows run in blocks of at most ``MAX_EXPERT_ROWS // experts``
+    (``MAX_EXPERT_ROWS_BF16`` for bf16 weights); a block's row axis pads
+    to its pow2 bucket (cheap: h/slot/gates only); the expert axis pads
+    inside ``_grouped_contrib``.
     """
     def block(h, slot, gates):
         n = slot.shape[0]
         h, slot, gates = _pad_rows(h, slot, gates)
         return _grouped_contrib(h, w_gate, w_up, w_down, slot, gates)[:n]
-    return _row_chunks(block, h, slot, gates, w_gate.shape[0])
+    return _row_chunks(block, h, slot, gates, w_gate.shape[0], _row_budget(w_gate.dtype))
 
 
 def grouped_topk_contrib_packed(h, parts, slot, gates, *, scheme: str):
@@ -169,7 +178,7 @@ def grouped_topk_contrib_packed(h, parts, slot, gates, *, scheme: str):
         n = slot.shape[0]
         h, slot, gates = _pad_rows(h, slot, gates)
         return _grouped_contrib_packed(h, parts, slot, gates, scheme=scheme)[:n]
-    return _row_chunks(block, h, slot, gates, parts["w_gate"][0].shape[0])
+    return _row_chunks(block, h, slot, gates, parts["w_gate"][0].shape[0], MAX_EXPERT_ROWS)
 
 
 def combine_topk(contrib):

@@ -94,6 +94,56 @@ def test_kernel_misaligned_weights_give_the_same_bits(dev, dtype):
     assert torch.equal(moe_ffn_kernel(x, *moved), moe_ffn_kernel(x, wg, wu, wd))
 
 
+# bf16 weights run on tensor cores: rows ride the MMA's N side (padded to 8,
+# row tiles of 8/16/32/64), weight columns its M side (tiles of 64), the
+# contraction in 256-row segments (split across blocks at small C).  D=320
+# is two segments, F=200 a ragged column tile.
+@pytest.mark.parametrize("e,c", [(1, 7), (8, 7), (8, 8), (2, 9), (8, 9), (8, 17), (16, 17),
+                                 (8, 64), (1, 65), (8, 65)])
+def test_bf16_kernel_rows_bitwise_across_row_tiles_and_experts(dev, e, c):
+    """Every (row, expert) output equals the E=8 C=65 call's, bit for bit,
+    whatever the row padding, the row tile, the expert count or the
+    segment split."""
+    x, wg, wu, wd = _inputs(dev, 16, 65, 320, 200, torch.bfloat16, seed=3)
+    full = moe_ffn_kernel(x[:8].contiguous(), wg[:8], wu[:8], wd[:8])
+    if e <= 8:
+        want = full[:e, :c]
+    else:
+        want = moe_ffn_kernel(x[:e, :c].contiguous(), wg[:e], wu[:e], wd[:e])
+        assert torch.equal(want[:8], full[:, :c])
+    got = moe_ffn_kernel(x[:e, :c].contiguous(), wg[:e], wu[:e], wd[:e])
+    assert torch.equal(got, want)
+    plain = moe_ffn_ref(x[:e, :c], wg[:e], wu[:e], wd[:e])
+    assert float((got - plain).abs().max() / plain.abs().max()) <= REL_TOL
+
+
+@pytest.mark.parametrize("e,c,d,f", [(16, 3, 128, 96), (2, 5, 200, 136), (3, 4, 72, 520),
+                                     (2, 2, 4096, 64), (1, 1, 64, 14336)])
+def test_bf16_kernel_widths_off_the_tiles_match_plain_version(dev, e, c, d, f):
+    """D and F that are not multiples of the 64-wide tiles or of a segment
+    (TMA fills the rest with zeros), 16 experts, and a long contraction."""
+    args = _inputs(dev, e, c, d, f, torch.bfloat16, seed=e + c)
+    k = moe_ffn_kernel(*args)
+    p = moe_ffn_ref(*args)
+    torch.cuda.synchronize()
+    assert k.shape == (e, c, d) and bool(torch.isfinite(k).all())
+    assert float((k - p).abs().max() / p.abs().max()) <= REL_TOL
+
+
+def test_bf16_kernel_repeats_bitwise_and_rows_do_not_depend_on_their_position(dev):
+    """Back-to-back calls (the tile counters reused) give the same bits, and
+    a row's output does not depend on its place among the MMA's rows."""
+    x, wg, wu, wd = _inputs(dev, 2, 13, 320, 200, torch.bfloat16, seed=7)
+    one = moe_ffn_kernel(x, wg, wu, wd)
+    assert torch.equal(moe_ffn_kernel(x, wg, wu, wd), one)
+    perm = torch.randperm(13, generator=torch.Generator().manual_seed(1)).to(dev)
+    moved = moe_ffn_kernel(x[:, perm].contiguous(), wg, wu, wd)
+    assert torch.equal(moved, one[:, perm])
+    for i in range(13):
+        solo = moe_ffn_kernel(x[:, i:i + 1].contiguous(), wg, wu, wd)
+        assert torch.equal(solo, one[:, i:i + 1])
+
+
 def test_kernel_counts_launches_and_moe_ffn_routes_to_it(dev):
     args = _inputs(dev, 2, 1, 64, 64, torch.bfloat16)
     before = moe_ffn_kernel.launches
@@ -330,6 +380,67 @@ def test_flash_kernel_rows_do_not_depend_on_batch_or_masked_tail(dev, dtype):
                                                                 device=dev)], 1),
                                     pos, window=300)
         assert torch.equal(grown, full)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_windows_around_one_chunk(dev, dtype):
+    """W of 1, chunk - 1, chunk and chunk + 1 slots: within tolerance, each
+    row equal to its own launch, and equal when W grows by masked slots."""
+    chunk = flash_lib.LIBRARY.lib.flash_decode_chunk()
+    for w in (1, chunk - 1, chunk, chunk + 1):
+        q, k, v, kpos, pos = _flash(dev, 3, w, 8, 4, 128, dtype, seed=w)
+        o = flash_decode_kernel(q, k, v, kpos, pos)
+        p = flash_decode_ref(q, k, v, kpos, pos)
+        torch.cuda.synchronize()
+        assert float((o - p).abs().max() / p.abs().max()) <= REL_TOL, w
+        for i in range(3):
+            assert torch.equal(flash_decode_kernel(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                                   kpos[i:i + 1], pos[i:i + 1]), o[i:i + 1])
+        extra = chunk + 5
+        noise = torch.randn((3, extra, 8, 128), device=dev).to(dtype)
+        pad = torch.full((3, extra), -1, dtype=torch.int32, device=dev)
+        grown = flash_decode_kernel(q, torch.cat([k, noise], 1), torch.cat([v, noise], 1),
+                                    torch.cat([kpos, pad], 1), pos)
+        assert torch.equal(grown, o), w
+
+
+def test_flash_kernel_repeats_bitwise_on_its_reused_scratch(dev):
+    """The workspace and the ticket counters are reused by every launch on
+    a stream: repeated launches, with other shapes in between, give the
+    same bits, and so do launches after the cache is released and a
+    smaller pair is allocated first."""
+    big = _flash(dev, 4, 3000, 8, 4, 128, torch.bfloat16, seed=1)
+    small = _flash(dev, 2, 70, 8, 4, 128, torch.bfloat16, seed=2)
+    first_big = flash_decode_kernel(*big)
+    first_small = flash_decode_kernel(*small)
+    for _ in range(3):
+        assert torch.equal(flash_decode_kernel(*big), first_big)
+        assert torch.equal(flash_decode_kernel(*small), first_small)
+        assert torch.equal(flash_decode_kernel(*big, window=100),
+                           flash_decode_kernel(*big, window=100))
+    flash_lib.release_scratch()
+    assert torch.equal(flash_decode_kernel(*small), first_small)
+    assert torch.equal(flash_decode_kernel(*big), first_big)
+
+
+def test_flash_kernel_launches_on_two_streams(dev):
+    """A launch on a second stream right after one on the first: each has
+    its own workspace and counters, and both give the default stream's
+    bits."""
+    args = _flash(dev, 4, 5000, 8, 4, 128, torch.bfloat16, seed=4)
+    want = flash_decode_kernel(*args)
+    s1, s2 = torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev)
+    s1.wait_stream(torch.cuda.current_stream(dev))
+    s2.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(4):
+        with torch.cuda.stream(s1):
+            outs.append(flash_decode_kernel(*args))
+        with torch.cuda.stream(s2):
+            outs.append(flash_decode_kernel(*args))
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(o, want)
 
 
 def test_flash_kernel_counts_launches_and_gives_zero_on_an_empty_row(dev):

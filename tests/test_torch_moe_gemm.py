@@ -116,6 +116,27 @@ def test_row_blocks_change_no_bit(monkeypatch, budget):
                                **TOL)
 
 
+@pytest.mark.parametrize("budget", [4, 16])
+def test_bf16_weights_take_their_own_row_budget_and_it_changes_no_bit(monkeypatch, budget):
+    """bf16 weights run in blocks of ``MAX_EXPERT_ROWS_BF16 // experts``
+    rows (their kernel's workspace is far smaller than fp32's), fp32
+    weights still in blocks of ``MAX_EXPERT_ROWS // experts``; either split
+    gives the bits of one call."""
+    from repro_torch.kernels.moe_gemm import ops
+    h, wg, wu, wd, slot, gates = map(torch.from_numpy, _contrib_inputs(12, 37, 2, 4))
+    wg, wu, wd = (w.to(torch.bfloat16) for w in (wg, wu, wd))
+    whole = grouped_topk_contrib(h, wg, wu, wd, slot, gates)
+    calls = []
+    monkeypatch.setattr(ops, "MAX_EXPERT_ROWS_BF16", budget)
+    monkeypatch.setattr(ops, "MAX_EXPERT_ROWS", 1 << 20)
+    real = ops._grouped_contrib
+    monkeypatch.setattr(ops, "_grouped_contrib",
+                        lambda h, *a: calls.append(h.shape[0]) or real(h, *a))
+    blocked = grouped_topk_contrib(h, wg, wu, wd, slot, gates)
+    assert torch.equal(blocked, whole)
+    assert max(calls) == budget // 4 and len(calls) == -(-37 // (budget // 4))
+
+
 def test_combine_sums_in_rank_order():
     """(1e8 + 1) - 1e8 is 0 in fp32, where (1e8 - 1e8) + 1 would be 1."""
     contrib = torch.tensor([[[1e8], [1.0], [-1e8]]], dtype=torch.float32)
