@@ -22,13 +22,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
              E/C = 2/1, 8/1, 8/16 and 16/64 beside its bound (bytes against
              fp32 FMAs, and against the bf16 tensor rate for the MMAs it
              issues), the plain version and a torch.bmm formula, and
-             profile its passes.
+             profile its passes.  Then the same kernel on fp32 weights (the
+             packed slice's dtype, its shadow and its reference): within
+             tolerance of its plain version and bitwise equal across E in
+             {1,2,8} and C in {1,2,16}, timed at E/C = 2/1, 8/1 and 8/16
+             beside its bound, its plain version and the torch.bmm fp32
+             formula (back to back, as every kernel time here; device
+             times alone, single calls queued behind a sleep kernel,
+             beside them), its two launches profiled against each one's
+             bound.
 4. packed  — the packed kernel on fp16, int8 and nf4 parts at the same
              shapes: bitwise equal to the grouped FFN on the dequantized
              weights, within tolerance of its plain version, bitwise
              equal across E and C; timed beside its bytes bound, its
              plain version and a torch.bmm formula on the dequantized
-             weights.
+             weights (device times alone beside them, as above); its int8
+             launches profiled at E=2 C=1.
 5. flash   — the flash-decode kernel against its plain version at
              Mixtral's attention shapes (K=8, G=4, Hd=128; bf16 and fp32;
              B in {1,4,16}; W in {32, 1008, 1040, 4096, 32768}, 1008
@@ -275,9 +284,10 @@ def phase_kernel() -> dict:
               f"issues (rows padded to the row tile, two per product) {tc_ms:.4f} ms "
               f"({tc_by}, {tc_ms / t_k:.1%})", flush=True)
     kernel_pass_profile(x, wg, wu, wd)
-    moe_ffn_kernel.launches = 0         # comparison launches do not count
     del wg, wu, wd, outs
     torch.cuda.empty_cache()
+    rows.update(kernel_fp32(x))
+    moe_ffn_kernel.launches = 0         # comparison launches do not count
     return rows
 
 
@@ -323,23 +333,116 @@ def row_block_times(x, wg, wu, wd) -> None:
 
 def kernel_pass_profile(x, wg, wu, wd):
     """Device time of each launch of the bf16 grouped FFN (split x, gate/up
-    with SwiGLU, down) at a decode wave's and a prefill block's shape, from
-    ``torch.profiler``'s CUDA activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    with SwiGLU, down) at a decode wave's and a prefill block's shape."""
     from repro_torch.kernels.moe_gemm import moe_ffn_kernel
     for e, c in ((2, 1), (16, 64)):
         xd = x[:c].expand(e, c, D_MODEL).contiguous()
-        moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
+        pass_profile(f"passes at E={e} C={c}",
+                     lambda: moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e]))
+
+
+def pass_bounds_ms(e: int, c: int, gate_up_bytes: int, down_bytes: int) -> dict:
+    """Bytes bound of each launch of the CUDA-core passes: gate/up reads x and
+    two weight matrices (``gate_up_bytes``) and writes hu; down reads hu and
+    one matrix (``down_bytes``) and writes y.  Keyed by the launch's NMAT."""
+    act = 4 * e * c * (D_MODEL + D_EXPERT)
+    return {2: (gate_up_bytes + act) / HBM_BYTES_PER_S * 1e3,
+            1: (down_bytes + act) / HBM_BYTES_PER_S * 1e3}
+
+
+def pass_profile(label: str, call, bounds: dict = None) -> None:
+    """Device time of each launch of one call (``torch.profiler``'s CUDA
+    activity, mean of 5 calls); with ``bounds`` (NMAT -> ms), each
+    ``ffn_pass`` launch's share of the call and of its own bytes bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
+    events = [(_kernel_name(ev.key), ev.device_time / 1e3) for ev in prof.key_averages()
+              if ev.device_time > 0]
+    total = sum(t for _, t in events)
+    parts = []
+    for name, t in events:
+        part = f"{name} {t:.4f} ms"
+        if bounds and name.startswith("fpass::ffn_pass<"):
+            nmat = int(name.split("<", 1)[1].split(",")[1])
+            part += (f" ({t / total:.1%} of the call; bound {bounds[nmat]:.4f} ms, "
+                     f"{bounds[nmat] / t:.1%} of it)")
+        parts.append(part)
+    print(f"[kernel] {label} (torch.profiler, mean of 5): " + "; ".join(parts), flush=True)
+
+
+def kernel_fp32(x) -> dict:
+    """Kernel 1 on fp32 weights at Mixtral widths: against its plain version
+    (tolerance), bitwise across E and C, timed beside its bound, its plain
+    version and the torch.bmm fp32 formula, its launches profiled."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_ref
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    wg = torch.randn((8, D_MODEL, D_EXPERT), generator=gen, device=dev) * D_MODEL ** -0.5
+    wu = torch.randn((8, D_MODEL, D_EXPERT), generator=gen, device=dev) * D_MODEL ** -0.5
+    wd = torch.randn((8, D_EXPERT, D_MODEL), generator=gen, device=dev) * D_EXPERT ** -0.5
+    outs, errs = {}, {}
+    for e in (1, 2, 8):
+        for c in (1, 2, 16):
+            xd = x[:c].expand(e, c, D_MODEL).contiguous()
+            k = moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
+            p = moe_ffn_ref(xd, wg[:e], wu[:e], wd[:e])
             torch.cuda.synchronize()
-        parts = [f"{_kernel_name(ev.key)} {ev.device_time / 1e3:.4f} ms"
-                 for ev in prof.key_averages() if ev.device_time > 0]
-        print(f"[kernel] passes at E={e} C={c} (torch.profiler, mean of 5): " + "; ".join(parts),
+            if not bool(torch.isfinite(k).all()):
+                fail(f"fp32 kernel output not finite at E={e} C={c}")
+            rel = float((k - p).abs().max() / p.abs().max())
+            errs[(e, c)] = float((k - p).abs().max())
+            print(f"[kernel] fp32 E={e} C={c:2d}: max|k-p| = {errs[(e, c)]:.3e}, "
+                  f"max|k-p|/max|p| = {rel:.3e} (tolerance {KERNEL_TOL:g})")
+            if rel > KERNEL_TOL:
+                fail(f"fp32 kernel disagrees with its plain version at E={e} C={c}")
+            outs[(e, c)] = k
+    for (e, c), k in outs.items():
+        if not torch.equal(k, outs[(8, 16)][:e, :c]):
+            fail(f"fp32 per-(row, expert) outputs at E={e} C={c} differ from E=8 C=16")
+    print("[kernel] fp32: per-(row, expert) outputs bitwise equal across E in {1,2,8} and C "
+          "in {1,2,16}")
+
+    def formula(xd, e):
+        hu = F.silu(torch.bmm(xd, wg[:e])) * torch.bmm(xd, wu[:e])
+        return torch.bmm(hu, wd[:e])
+
+    rows = {}
+    for e, c in ((2, 1), (8, 1), (8, 16)):
+        xd = x[:c].expand(e, c, D_MODEL).contiguous()
+
+        def kern():
+            return moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
+
+        t_k = time_ms(kern)
+        t_p = time_ms(lambda: moe_ffn_ref(xd, wg[:e], wu[:e], wd[:e]), iters=5)
+        t_l = time_ms(lambda: formula(xd, e))
+        t_k2 = time_ms(kern)
+        d_k, d_l = median_ms(kern), median_ms(lambda: formula(xd, e))
+        b_ms, b_by = bound_ms(e, c, 4)
+        rows[("fp32", e, c)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                    bound_by=b_by, max_abs_err=errs[(e, c)], device_ms=d_k,
+                                    library_device_ms=d_l)
+        print(f"[kernel] fp32 time E={e} C={c:2d}: kernel {t_k:.4f} ms (again after the "
+              f"formula: {t_k2:.4f} ms), torch.bmm fp32 formula {t_l:.4f} ms ({t_k / t_l:.3f}x), "
+              f"plain {t_p:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {b_ms / t_k:.1%} of the "
+              f"kernel's time); device time alone (median of 25 single calls queued behind a "
+              f"sleep kernel): kernel {d_k:.4f} ms, formula {d_l:.4f} ms ({d_k / d_l:.3f}x)",
               flush=True)
+    xd = x[:1].expand(2, 1, D_MODEL).contiguous()
+    pass_profile("fp32 passes at E=2 C=1", lambda: moe_ffn_kernel(xd, wg[:2], wu[:2], wd[:2]),
+                 pass_bounds_ms(2, 1, 2 * 2 * D_MODEL * D_EXPERT * 4,
+                                2 * D_MODEL * D_EXPERT * 4))
+    del wg, wu, wd, outs
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _kernel_name(key: str) -> str:
@@ -426,6 +529,9 @@ def phase_packed_kernel() -> dict:
             t_k1 = time_ms(lambda: moe_ffn_kernel(xd, *(w[:e] for w in full)))
             t_p = time_ms(lambda: moe_ffn_packed_ref(xd, pe, scheme=scheme), iters=5)
             t_l = time_ms(lambda: formula(xd, e))
+            d_k = median_ms(lambda: moe_ffn_packed_kernel(xd, pe, scheme=scheme))
+            d_k1 = median_ms(lambda: moe_ffn_kernel(xd, *(w[:e] for w in full)))
+            d_l = median_ms(lambda: formula(xd, e))
             nbytes = (2 * xd.numel() * 4 + sum(t.numel() * t.element_size()
                                                for ps in pe.values() for t in ps)
                       + (64 if scheme == "nf4" else 0))
@@ -436,11 +542,19 @@ def phase_packed_kernel() -> dict:
                                                      else "operations")
             rows[(scheme, e, c)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                                         bound_by=b_by, max_abs_err=errs[(e, c)],
-                                        nbytes=nbytes, moe_ffn_fp32_ms=t_k1)
+                                        nbytes=nbytes, moe_ffn_fp32_ms=t_k1, device_ms=d_k)
             print(f"[packed] time {scheme} E={e} C={c}: kernel {t_k:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes), plain {t_p:.4f} ms, "
-                  f"torch.bmm fp32 formula on dequantized weights {t_l:.4f} ms, moe_ffn on "
-                  f"the same fp32 weights {t_k1:.4f} ms", flush=True)
+                  f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes, {b_ms / t_k:.1%} of the kernel's "
+                  f"time), plain {t_p:.4f} ms, torch.bmm fp32 formula on dequantized weights "
+                  f"{t_l:.4f} ms, moe_ffn on the same fp32 weights {t_k1:.4f} ms; device time "
+                  f"alone (median of 25 single calls queued behind a sleep kernel): kernel "
+                  f"{d_k:.4f} ms, formula {d_l:.4f} ms, moe_ffn {d_k1:.4f} ms", flush=True)
+            if (scheme, e, c) == ("int8", 2, 1):
+                codes = D_MODEL * D_EXPERT                   # a matrix's codes, then scales
+                pass_profile("packed int8 passes at E=2 C=1",
+                             lambda: moe_ffn_packed_kernel(xd, pe, scheme=scheme),
+                             pass_bounds_ms(e, c, 2 * e * (codes + 4 * D_EXPERT),
+                                            e * (codes + 4 * D_MODEL)))
         del parts, full
         torch.cuda.empty_cache()
     moe_ffn_packed_kernel.launches = 0     # comparison launches do not count
@@ -1468,7 +1582,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     irows = phase_int8()
-    row, prow, frow = rows[(2, 1)], prows[("int8", 2, 1)], frows[(4, 144)]
+    row, row32 = rows[(2, 1)], rows[("fp32", 2, 1)]
+    prow, frow = prows[("int8", 2, 1)], frows[(4, 144)]
     srow, irow = srows[(1, 4)], irows[(D_MODEL, D_EXPERT, torch.float32)]
     print("[memory] peak device memory while serving (while building the engine and pool): "
           + ", ".join(f"{n} {r['peak_gb']:.2f} GB ({r['built_gb']:.2f} GB)" for n, r in
@@ -1487,13 +1602,17 @@ def main():
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} bf16 weights (engine wave)",
+        "fp32_ms": row32["ms"], "fp32_bound_ms": row32["bound_ms"],
+        "fp32_library_ms": row32["library_ms"], "fp32_device_ms": row32["device_ms"],
+        "fp32_shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} fp32 weights (the packed slice's "
+                      "dtype: its shadow and reference), library = torch.bmm fp32 formula",
     }, {
         "name": "moe_ffn_packed", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn_packed.cu",
         "replaces": "src/repro/kernels/moe_gemm/packed.py:147",
         "launches": packed["launches"], "max_abs_err": prow["max_abs_err"],
         "ms": prow["ms"], "plain_ms": prow["plain_ms"], "bound_ms": prow["bound_ms"],
-        "bound_by": prow["bound_by"], "library_ms": None,
+        "bound_by": prow["bound_by"], "library_ms": None, "device_ms": prow["device_ms"],
         "yardstick_ms": prow["library_ms"],
         "yardstick": "torch.bmm fp32 formula on the dequantized weights (no PyTorch call "
                      "dequantizes inside its product)",

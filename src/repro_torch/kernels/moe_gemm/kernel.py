@@ -2,7 +2,7 @@
 
 Replaces ``repro/kernels/moe_gemm/kernel.py:61 moe_ffn_kernel``.  bf16
 weights run on tensor cores (``csrc/moe_ffn_mma.cuh``), fp32 weights on the
-CUDA-core passes the packed kernel shares (``csrc/moe_ffn_common.cuh``).
+staged CUDA-core passes the packed kernel shares (``csrc/moe_ffn_common.cuh``).
 The library is built by :mod:`repro_torch.kernels._nvcc` on first use;
 hosts without ``nvcc`` import this module freely, and only a launch needs
 the card.
@@ -19,14 +19,14 @@ _WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _bind(lib) -> None:
-    lib.moe_ffn_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    lib.moe_ffn_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.moe_ffn_launch.restype = ctypes.c_int
     lib.moe_ffn_bf16_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.moe_ffn_bf16_launch.restype = ctypes.c_int
-    for name in ("moe_ffn_workspace_floats", "moe_ffn_bf16_workspace_bytes",
-                 "moe_ffn_bf16_counters"):
+    for name in ("moe_ffn_workspace_floats", "moe_ffn_counters",
+                 "moe_ffn_bf16_workspace_bytes", "moe_ffn_bf16_counters"):
         getattr(lib, name).argtypes = [ctypes.c_int] * 4
         getattr(lib, name).restype = ctypes.c_longlong
 
@@ -34,9 +34,10 @@ def _bind(lib) -> None:
 LIBRARY = CudaLibrary("moe_ffn", "moe_ffn.cu", headers=("moe_ffn_common.cuh", "moe_ffn_mma.cuh"),
                       bind=_bind)
 
-# (device index, stream) -> the bf16 path's tile counters, grown on demand.
-# The kernel leaves them at zero and launches on one stream run one after
-# another, so they share one array; another stream gets its own.
+# (device index, stream) -> tile counters, grown on demand: the bf16 path's,
+# the fp32 path's and the packed kernel's (``packed.py``).  Every launch
+# leaves them at zero and launches on one stream run one after another, so
+# they share one array; another stream gets its own.
 _COUNTERS: dict = {}
 
 
@@ -49,10 +50,24 @@ def _counters(device, stream: int, n: int):
     return counters
 
 
+# (C function, device index, arguments) -> its answer: the workspace and
+# counter sizes of a call depend only on its sizes and the card.
+_SIZES: dict = {}
+
+
+def _size(fn, device, *args) -> int:
+    key = (fn.__name__, device.index, args)
+    n = _SIZES.get(key)
+    if n is None:
+        n = _SIZES[key] = int(fn(*args))
+    return n
+
+
 def workspace_bytes(e: int, c: int, d: int, f: int, dtype) -> int:
     """Bytes of workspace one call at these sizes allocates on the current
     device (x's and hu's split terms and, at small C, segment partials
-    for bf16 weights; per-segment partials for fp32 weights)."""
+    for bf16 weights; hu and, at small C, segment partials for fp32
+    weights)."""
     lib = LIBRARY.lib
     if dtype == torch.bfloat16:
         return int(lib.moe_ffn_bf16_workspace_bytes(e, c, d, f))
@@ -91,9 +106,12 @@ def moe_ffn_kernel(xd, w_gate, w_up, w_down):
             err = lib.moe_ffn_bf16_launch(*ptrs, ws.data_ptr(), counters.data_ptr(),
                                           y.data_ptr(), e, c, d, f, stream)
         else:
-            ws = torch.empty((lib.moe_ffn_workspace_floats(e, c, d, f),), dtype=torch.float32,
-                             device=xd.device)
-            err = lib.moe_ffn_launch(*ptrs, ws.data_ptr(), y.data_ptr(), e, c, d, f, stream)
+            ws = torch.empty((_size(lib.moe_ffn_workspace_floats, xd.device, e, c, d, f),),
+                             dtype=torch.float32, device=xd.device)
+            counters = _counters(xd.device, stream,
+                                 _size(lib.moe_ffn_counters, xd.device, e, c, d, f))
+            err = lib.moe_ffn_launch(*ptrs, ws.data_ptr(), counters.data_ptr(), y.data_ptr(),
+                                     e, c, d, f, stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn kernel launch failed: cudaError {err}")
     moe_ffn_kernel.launches += 1

@@ -100,12 +100,12 @@ def _grouped_contrib_packed(h, parts, slot, gates, *, scheme: str):
 
 # Expert-rows per grouped-FFN call.  Every (padded) expert runs every row
 # of a call, and the kernel's workspace grows with experts x rows.  On fp32
-# weights (and the packed kernel, which shares their passes) that is about
-# 2.6 MB per expert-row at D=4096, F=14336, so a 1000-token prefill over 16
-# experts in one call would ask for 43 GiB: a longer row set runs in blocks
-# of ``MAX_EXPERT_ROWS // experts`` rows (64 for 16 experts, 128 for 8), and
-# each further block reads every expert's weights again.  On bf16 weights
-# the workspace holds only x's and hu's split terms, about 74 KB per
+# weights (and the packed kernel, which shares their passes) that is hu,
+# 57 KB per expert-row at D=4096, F=14336, and at 16 rows or fewer the
+# segment partials too, about 2.7 MB per expert-row: a longer row set runs
+# in blocks of ``MAX_EXPERT_ROWS // experts`` rows (64 for 16 experts, 128
+# for 8), and each further block reads every expert's weights again.  On
+# bf16 weights the workspace holds only x's and hu's split terms, about 74 KB per
 # expert-row at that width, so a block is ``MAX_EXPERT_ROWS_BF16 //
 # experts`` rows (1024 for 16 experts: a Jamba prompt of up to 1024 tokens
 # is one call, 1.2 GB of workspace).  A row's bits depend on neither the

@@ -12,9 +12,10 @@ expert axis (what ``WorkerSlots.gather_stack_packed`` produces):
   * nf4  — ``(codes, absmax)``: codes ``(rows, cols/2)``, two per byte,
     high nibble first; absmax ``(rows, cols/64)``.
 
-The kernel dequantizes in registers.  Dequantization is elementwise and
-exact and the sums are kernel 1's, so the output equals, bit for bit,
-``moe_ffn_kernel`` on ``dequantize_tiles`` of the same parts.
+The kernel dequantizes each word of codes as it reads it from shared
+memory.  Dequantization is elementwise and exact and the passes are kernel
+1's fp32 ones, so the output equals, bit for bit, ``moe_ffn_kernel`` on
+``dequantize_tiles`` of the same parts.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
 
+from .kernel import _counters, _size
 from .ref import moe_ffn_ref
 
 _SCHEME_IDS = {"fp16": 0, "int8": 1, "nf4": 2}
@@ -33,11 +35,12 @@ _LEVELS: Dict[torch.device, torch.Tensor] = {}     # NF4_LEVELS per device
 
 
 def _bind(lib) -> None:
-    lib.moe_ffn_packed_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+    lib.moe_ffn_packed_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.moe_ffn_packed_launch.restype = ctypes.c_int
-    lib.moe_ffn_packed_workspace_floats.argtypes = [ctypes.c_int] * 4
-    lib.moe_ffn_packed_workspace_floats.restype = ctypes.c_longlong
+    for name in ("moe_ffn_packed_workspace_floats", "moe_ffn_packed_counters"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+        getattr(lib, name).restype = ctypes.c_longlong
 
 
 LIBRARY = CudaLibrary("moe_ffn_packed", "moe_ffn_packed.cu",
@@ -110,13 +113,16 @@ def moe_ffn_packed_kernel(xd, parts, *, scheme: str):
                  parts[name][1].data_ptr() if len(specs) > 1 else None]
     levels = _levels(xd.device).data_ptr() if scheme == "nf4" else None
     lib = LIBRARY.lib
-    ws = torch.empty((lib.moe_ffn_packed_workspace_floats(e, c, d, f),),
+    sid = _SCHEME_IDS[scheme]
+    ws = torch.empty((_size(lib.moe_ffn_packed_workspace_floats, xd.device, sid, e, c, d, f),),
                      dtype=torch.float32, device=xd.device)
     y = torch.empty((e, c, d), dtype=torch.float32, device=xd.device)
     with torch.cuda.device(xd.device):
         stream = torch.cuda.current_stream(xd.device).cuda_stream
-        err = lib.moe_ffn_packed_launch(_SCHEME_IDS[scheme], xd.data_ptr(), *ptrs, levels,
-                                        ws.data_ptr(), y.data_ptr(), e, c, d, f, stream)
+        counters = _counters(xd.device, stream,
+                             _size(lib.moe_ffn_packed_counters, xd.device, sid, e, c, d, f))
+        err = lib.moe_ffn_packed_launch(sid, xd.data_ptr(), *ptrs, levels, ws.data_ptr(),
+                                        counters.data_ptr(), y.data_ptr(), e, c, d, f, stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn_packed kernel launch failed: cudaError {err}")
     moe_ffn_packed_kernel.launches += 1

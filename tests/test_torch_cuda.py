@@ -170,6 +170,57 @@ def test_kernel_refuses_bad_inputs(dev):
         moe_ffn_kernel(x.cpu(), wg, wu, wd)
 
 
+# fp32 weights and the packed formats share the staged CUDA-core passes:
+# column tiles of one 512-byte run of a weight row (128 fp32, 256 fp16, 512
+# int8, 1024 nf4 columns), 32-row stages, 256-row segments cut across work
+# units at small C and folded by the unit that draws a tile's last ticket,
+# row tiles of 1, up to 4, or the format's largest (16 for fp32) rows.  These
+# widths are off the column tile, the segment and the stage (D=72 is two
+# stages and one ragged segment; D=4096 F=64 sixteen segments of one narrow
+# tile; F=576 a ragged nf4 tile whose absmax rows are not whole 16-byte
+# runs); C in {1, 7, 17, 65} crosses every row tile; E up to 16.
+EDGE_WIDTHS = [(320, 200), (72, 520), (4096, 64), (320, 576)]
+
+
+@pytest.mark.parametrize("d,f", EDGE_WIDTHS)
+def test_fp32_kernel_rows_bitwise_across_row_tiles_and_experts(dev, d, f):
+    """Every (row, expert) output of the fp32 path equals the E=16 C=65
+    call's, bit for bit, whatever the row tile, the expert count or the
+    segment split; back-to-back calls (the tile counters reused) repeat
+    it."""
+    x, wg, wu, wd = _inputs(dev, 16, 65, d, f, torch.float32, seed=d + f)
+    full = moe_ffn_kernel(x, wg, wu, wd)
+    assert torch.equal(moe_ffn_kernel(x, wg, wu, wd), full)
+    for e in (1, 2, 8, 16):
+        for c in (1, 7, 17, 65):
+            got = moe_ffn_kernel(x[:e, :c].contiguous(), wg[:e], wu[:e], wd[:e])
+            assert torch.equal(got, full[:e, :c]), (e, c)
+    plain = moe_ffn_ref(x[:2, :17], wg[:2], wu[:2], wd[:2])
+    assert float((full[:2, :17] - plain).abs().max() / plain.abs().max()) <= REL_TOL
+
+
+PACKED_EDGES = [(s, d, f) for d, f in EDGE_WIDTHS for s in ("fp16", "int8", "nf4")
+                if s != "nf4" or (d % 64 == 0 and f % 64 == 0)]
+
+
+@pytest.mark.parametrize("scheme,d,f", PACKED_EDGES)
+def test_packed_kernel_at_the_passes_edges_equals_kernel1(dev, scheme, d, f):
+    """At the same edges the packed kernel equals kernel 1 on the
+    dequantized weights bit for bit, its rows do not depend on E or C, and
+    back-to-back calls repeat it."""
+    parts = _packed(dev, scheme, 16, d, f, seed=d * 7 + f)
+    x = torch.randn((16, 65, d), generator=torch.Generator(device=dev).manual_seed(f),
+                    device=dev)
+    full = moe_ffn_packed_kernel(x, parts, scheme=scheme)
+    assert torch.equal(full, moe_ffn_kernel(x, *_full(scheme, parts)))
+    assert torch.equal(moe_ffn_packed_kernel(x, parts, scheme=scheme), full)
+    for e in (1, 2, 8):
+        sub = {n: tuple(p[:e] for p in ps) for n, ps in parts.items()}
+        for c in (1, 7, 17):
+            got = moe_ffn_packed_kernel(x[:e, :c].contiguous(), sub, scheme=scheme)
+            assert torch.equal(got, full[:e, :c]), (e, c)
+
+
 @pytest.mark.parametrize("predictor", ["sep", "nextgate", "freq", "random", "none"])
 def test_engine_on_the_card_equals_greedy(dev, predictor):
     cfg = ModelConfig(name="t-moe", family="moe", num_layers=4, d_model=64,
