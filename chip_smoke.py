@@ -108,10 +108,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
 13. int8   — the w8a16 matmul kernel against its plain version at the JAX
              tests' shapes (32x128x64, 64x256x96, ragged 13x70x33) and the
              Mixtral-8x7B expert matrices (4096x14336, 14336x4096) with M in
-             {1, 4, 8}, fp32 and bf16 x; repeated launches bitwise equal;
-             timed at M=4 beside its bytes bound, its plain version and
-             cuBLAS on weights dequantized beforehand (fp32 and bf16).  No
-             path of the port calls it, as in the JAX package.
+             {1, 4, 8}, fp32 and bf16 x, each with its plan (segments, the
+             cluster fold, tiles); repeated launches bitwise equal; each row
+             of M=13 and M=8 calls bitwise equal to its own M=1 launch and
+             bf16 x to the same values in fp32; no int-to-float conversion
+             (I2F) in its SASS (``cuobjdump``); timed at M in {1, 4, 8} with
+             L2 warm and flushed, beside its bytes bound, and at M=4 beside
+             its plain version and cuBLAS on weights dequantized beforehand
+             (fp32 and bf16); one kernel launch a call (``torch.profiler``).
+             No path of the port calls it, as in the JAX package.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed.  The script imports nothing of JAX or of the
@@ -562,11 +567,13 @@ def phase_packed_kernel() -> dict:
     return rows
 
 
-def median_ms(fn, iters: int = 25, warmup: int = 3, device_only: bool = True) -> float:
+def median_ms(fn, iters: int = 25, warmup: int = 3, device_only: bool = True,
+              before=None) -> float:
     """Median time of single launches, CUDA events around each.  With
     ``device_only`` a sleep kernel first holds the stream, so the whole call
     is queued before the start event fires and the events see device time
-    alone; without it they also see the host's time to launch it."""
+    alone; without it they also see the host's time to launch it.
+    ``before``, if given, is queued before each start event (an L2 flush)."""
     import statistics
     import torch
     for _ in range(warmup):
@@ -577,6 +584,8 @@ def median_ms(fn, iters: int = 25, warmup: int = 3, device_only: bool = True) ->
         end = torch.cuda.Event(enable_timing=True)
         if device_only:
             torch.cuda._sleep(2_000_000)
+        if before is not None:
+            before()
         start.record()
         fn()
         end.record()
@@ -1073,6 +1082,9 @@ def phase_prefetch_serve(cfg, params, sync_steps: dict) -> dict:
 
 
 INT8_SWEEP = ((32, 128, 64), (64, 256, 96), (13, 70, 33))   # tests/test_kernels.py's shapes
+INT8_SHAPES = ((D_MODEL, D_EXPERT), (D_EXPERT, D_MODEL))      # a Mixtral-8x7B expert's matrices
+INT8_TIME_ROWS = (1, 4, 8)
+L2_FLUSH_BYTES = 256 << 20        # a write over it evicts the H100's 50 MB L2
 
 
 def int8_inputs(m, k, n, dtype, seed):
@@ -1084,14 +1096,132 @@ def int8_inputs(m, k, n, dtype, seed):
     return x, wq, sc
 
 
+def int8_bound_ms(m, k, n, itemsize) -> tuple:
+    """Least time for one call: codes, x, scale read once and y written once
+    at 3.35 TB/s, against its fp32 FMAs at 67 TFLOP/s."""
+    nbytes = k * n + m * k * itemsize + 4 * n + 4 * m * n
+    ops = 2 * m * k * n + m * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
+def int8_times(kernel, label: str = "int8") -> dict:
+    """Device time (``median_ms``) of ``kernel`` at M in INT8_TIME_ROWS on the
+    Mixtral expert matrices, fp32 and bf16 x: repeated calls (part of the
+    58.7 MB of codes may still sit in the 50 MB L2), then with a 256 MB
+    write queued before each call (L2 flushed; the write leaves dirty lines
+    that the call's reads evict).  Keyed (m, k, n, dtype)."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for k, n in INT8_SHAPES:
+        for m in INT8_TIME_ROWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, wq, sc = int8_inputs(m, k, n, dtype, seed=1)
+                t = median_ms(lambda: kernel(x, wq, sc))
+                t_cold = median_ms(lambda: kernel(x, wq, sc), before=flush.zero_)
+                b_ms, b_by, nbytes = int8_bound_ms(m, k, n, x.element_size())
+                rows[(m, k, n, dtype)] = dict(ms=t, cold_ms=t_cold, bound_ms=b_ms, bound_by=b_by,
+                                              nbytes=nbytes)
+                print(f"[{label}] time M={m} K={k} N={n} {str(dtype)[6:]} x: {t:.4f} ms "
+                      f"({b_ms / t:.1%} of its {b_ms:.4f} ms {b_by} bound, {nbytes} bytes); "
+                      f"L2 flushed before each call {t_cold:.4f} ms ({b_ms / t_cold:.1%}) "
+                      f"(device time, median of 25)", flush=True)
+                del x, wq, sc
+    del flush
+    return rows
+
+
+def int8_bits(kernel) -> None:
+    """Bitwise gates of the w8a16 kernel's summation order: each row of an
+    M=13 and an M=8 call equals its own M=1 launch, and bf16 x gives the
+    bits of the same values in fp32, at both Mixtral shapes."""
+    import torch
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for k, n in INT8_SHAPES:
+        for m in (13, 8):
+            x, wq, sc = int8_inputs(m, k, n, torch.float32, seed=m + 3)
+            full = kernel(x, wq, sc)
+            for i in range(m):
+                if not same(kernel(x[i:i + 1], wq, sc), full[i:i + 1]):
+                    fail(f"int8 matmul row {i} of an M={m} call at K={k} N={n} differs from "
+                         f"its own M=1 launch")
+        for m in (1, 4, 8, 13):
+            x, wq, sc = int8_inputs(m, k, n, torch.bfloat16, seed=m)
+            if not same(kernel(x, wq, sc), kernel(x.float(), wq, sc)):
+                fail(f"int8 matmul bf16 x differs from the same values in fp32 at M={m} K={k} "
+                     f"N={n}")
+        torch.cuda.synchronize()
+    print("[int8] bitwise: every row of M=13 and M=8 calls == its own M=1 launch, bf16 x == "
+          "x.float() at M in {1, 4, 8, 13}, at both Mixtral shapes", flush=True)
+
+
+def int8_sass(lib_path: str) -> None:
+    """The instruction mix of the w8a16 kernels (``cuobjdump -sass`` of the
+    built library): any int-to-float conversion (I2F) fails the phase."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        fail("cuobjdump not found: the int8 kernel's SASS cannot be checked")
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed: {proc.stderr.strip()[:300]}")
+    funcs = re.split(r"\n\s*Function : ", proc.stdout)[1:]
+    if not funcs:
+        fail("cuobjdump -sass listed no function of the int8 library")
+    for body in funcs:
+        name = body.split("\n", 1)[0].strip()
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)",
+                         body)
+        count = {}
+        for op in ops:
+            base = op.split(".")[0]
+            count[base] = count.get(base, 0) + 1
+        i2f = sum(v for key, v in count.items() if key.startswith("I2F"))
+        print(f"[int8] SASS {name}: {len(ops)} instructions, I2F {i2f}, FFMA "
+              f"{count.get('FFMA', 0)}, PRMT {count.get('PRMT', 0)}, FADD "
+              f"{count.get('FADD', 0)}, LDS {count.get('LDS', 0)}, UTMALDG "
+              f"{count.get('UTMALDG', 0)}", flush=True)
+        if i2f:
+            fail(f"int8 kernel {name} has {i2f} int-to-float conversions (I2F) in its SASS")
+
+
+def int8_profile(kernel, m, k, n) -> None:
+    """One call is one kernel: ``torch.profiler`` over 5 calls sees the w8a16
+    kernel and no other (no reduction, no workspace fill).  After the other
+    phases' profiles in the same process the profiler may keep fewer than
+    all 5 records; the count is printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x, wq, sc = int8_inputs(m, k, n, torch.float32, seed=1)
+    kernel(x, wq, sc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kernel(x, wq, sc)
+        torch.cuda.synchronize()
+    events = [(ev.key, ev.count, ev.device_time / 1e3) for ev in prof.key_averages()
+              if ev.device_time > 0]
+    print(f"[int8] profile of 5 calls at M={m} K={k} N={n} (torch.profiler): "
+          + "; ".join(f"{name} x{count}, {t:.4f} ms each" for name, count, t in events),
+          flush=True)
+    if not events or any("int8_matmul_kernel" not in name or count > 5
+                         for name, count, _ in events):
+        fail("an int8 matmul call launched another kernel than its one")
+
+
 def phase_int8() -> dict:
     """The w8a16 matmul kernel against its plain version, bitwise repeatable,
-    then timed at M=4 on the Mixtral expert matrices."""
+    its summation-order gates, its SASS, then timed on the Mixtral expert
+    matrices."""
     import torch
     from repro_torch.kernels.int8_matmul import int8_matmul_kernel, int8_matmul_ref
     from repro_torch.kernels.int8_matmul import kernel as int8_lib
-    shapes = list(INT8_SWEEP) + [(m, k, n) for m in (1, 4, 8)
-                                 for k, n in ((D_MODEL, D_EXPERT), (D_EXPERT, D_MODEL))]
+    shapes = list(INT8_SWEEP) + [(m, k, n) for m in (1, 4, 8) for k, n in INT8_SHAPES]
     worst, errs = 0.0, {}
     for m, k, n in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1111,37 +1241,44 @@ def phase_int8() -> dict:
                      f"{rel:.3e}")
             if not torch.equal(got, again):
                 fail(f"int8 matmul repeated launches differ at {(m, k, n)} {dtype}")
+        p = int8_lib.plan(m, n, k)
         print(f"[int8] M={m} K={k} N={n}: max|k-p| {errs[(m, k, n, torch.float32)]:.3e} (fp32 "
-              f"x) / {errs[(m, k, n, torch.bfloat16)]:.3e} (bf16 x), K split "
-              f"{int8_lib.LIBRARY.lib.int8_matmul_splits(m, n, k)} way(s); repeated launch "
-              f"bitwise equal", flush=True)
+              f"x) / {errs[(m, k, n, torch.bfloat16)]:.3e} (bf16 x); one launch of "
+              f"{p['blocks']} blocks: K in {p['segments']} segment(s) of {p['segment_rows']} "
+              f"rows, folded in segment order through distributed shared memory by clusters "
+              f"of {p['cluster_blocks']} block(s) ({p['block_segments']} segment(s) a block), "
+              f"column tiles of {p['tile_bytes']} codes, row tile {p['row_tile']}; repeated "
+              f"launch bitwise equal", flush=True)
     print(f"[int8] worst max|k-p|/max|p| {worst:.3e} (tolerance {INT8_TOL:g})")
+    for m, k, n in INT8_SWEEP:
+        x, wq, sc = int8_inputs(m, k, n, torch.float32, seed=m + k + n)
+        t = median_ms(lambda: int8_matmul_kernel(x, wq, sc))
+        b_ms = int8_bound_ms(m, k, n, 4)[0]
+        print(f"[int8] time M={m} K={k} N={n} fp32 x: {t:.4f} ms (bound {b_ms:.6f} ms; at this "
+              f"size a launch's fixed cost) (device time, median of 25)", flush=True)
+    int8_bits(int8_matmul_kernel)
+    int8_sass(int8_lib.LIBRARY.build()["path"])
+    times = int8_times(int8_matmul_kernel)
     rows = {}
-    for k, n in ((D_MODEL, D_EXPERT), (D_EXPERT, D_MODEL)):
-        m = 4
+    m = 4
+    for k, n in INT8_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x, wq, sc = int8_inputs(m, k, n, dtype, seed=1)
             w32 = wq.float() * sc[None, :]
             w16 = w32.to(torch.bfloat16)
             x32, x16 = x.float(), x.to(torch.bfloat16)
-            t_k = median_ms(lambda: int8_matmul_kernel(x, wq, sc))
             t_p = median_ms(lambda: int8_matmul_ref(x, wq, sc), iters=20)
             t_l32 = median_ms(lambda: x32 @ w32)
             t_l16 = median_ms(lambda: x16 @ w16)
-            nbytes = k * n + m * k * x.element_size() + 4 * n + 4 * m * n
-            ops = 2 * m * k * n + m * n
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
-            b_ms = max(t_bytes, t_ops) * 1e3
-            b_by = "bytes" if t_bytes >= t_ops else "operations"
-            rows[(k, n, dtype)] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                                       yardstick_fp32_ms=t_l32, yardstick_bf16_ms=t_l16,
-                                       max_abs_err=errs[(m, k, n, dtype)], nbytes=nbytes)
-            print(f"[int8] time M={m} K={k} N={n} {str(dtype)[6:]} x: kernel {t_k:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}, {nbytes} bytes, {b_ms / t_k:.1%} of it), "
+            row = dict(times[(m, k, n, dtype)], plain_ms=t_p, yardstick_fp32_ms=t_l32,
+                       yardstick_bf16_ms=t_l16, max_abs_err=errs[(m, k, n, dtype)])
+            rows[(k, n, dtype)] = row
+            print(f"[int8] M={m} K={k} N={n} {str(dtype)[6:]} x: kernel {row['ms']:.4f} ms, "
                   f"plain {t_p:.4f} ms, cuBLAS on dequantized weights {t_l32:.4f} ms (fp32) / "
                   f"{t_l16:.4f} ms (bf16) (device time, median of 25 / 20 / 25 launches)",
                   flush=True)
             del x, wq, sc, w32, w16, x32, x16
+    int8_profile(int8_matmul_kernel, 4, D_MODEL, D_EXPERT)
     int8_matmul_kernel.launches = 0        # comparison launches do not count
     torch.cuda.empty_cache()
     return rows
@@ -1642,7 +1779,7 @@ def main():
         "replaces": "src/repro/kernels/int8_matmul/kernel.py:56",
         "launches": prefetch["launches"]["int8_matmul"], "max_abs_err": irow["max_abs_err"],
         "ms": irow["ms"], "plain_ms": irow["plain_ms"], "bound_ms": irow["bound_ms"],
-        "bound_by": irow["bound_by"], "library_ms": None,
+        "bound_by": irow["bound_by"], "library_ms": None, "cold_l2_ms": irow["cold_ms"],
         "yardstick_ms": irow["yardstick_fp32_ms"],
         "yardstick": "cuBLAS fp32 x @ w on weights dequantized beforehand (no PyTorch call "
                      "dequantizes inside its product)",

@@ -5,186 +5,511 @@
 //
 //     y[m, n] = (sum_k x[m, k] * float(w_q[k, n])) * scale[n]
 //
-// with x: (M,K) fp32 or bf16, w_q: (K,N) int8, scale: (N,) fp32 and y: (M,N)
-// fp32, all row-major and contiguous.  As in the TPU kernel every partial
-// sum is fp32 and the scale is applied once, after the whole sum over K.
-// Any M, K and N are computed; ragged edges are masked.
+// with x: (M,K) fp32 or bf16 (widened exactly), w_q: (K,N) int8, scale: (N,)
+// fp32 and y: (M,N) fp32, all row-major and contiguous.  As in the TPU kernel
+// every partial sum is fp32 and the scale is applied once, after the whole
+// sum over K.  Any M, K and N are computed; the weight base may be off its
+// alignment and N ragged.
 //
-// Bound: at decode shapes (M of a few rows) the int8 weights are nearly all
+// Bound: at decode shapes (M of a few rows) the int8 codes are nearly all
 // the bytes, K*N + M*K*itemsize + 4*N + 4*M*N over device memory bandwidth
-// (3.35 TB/s), against 2*M*K*N fp32 operations.  Design for that: read each
-// weight byte once, in long coalesced rows, with many loads in flight.
+// (3.35 TB/s): 17.6 us for a Mixtral-8x7B expert matrix (58.7 MB of codes).
+// Each code feeds M multiply-adds and a few instructions of dequantization,
+// so from M of about 4 the FMA issue of the busiest SMs, not memory, sets
+// the time: the design reads each code byte once, with many bytes in
+// flight, and spends few instructions on each.
 //
-// Structure.  The TPU kernel walked K as its last, sequential grid axis and
-// accumulated into a revisited output tile.  Blocks here run in parallel and
-// in no order, so:
-//   * K is split into runs of kSplitK = 256 over gridDim.z (the column tiles
-//     alone are far too few blocks for 132 SMs at decode shapes).  Each split
-//     writes its partial sums to a workspace and a second kernel adds the
-//     splits in order 0..S-1 and applies the scale; with one split the block
-//     applies it.  The workspace costs S*M*N*8 bytes of traffic, an eighth
-//     of the weights' at M=4;
-//   * a block owns kCols = 512 columns and up to kRows = 4 rows of x over one
-//     split, and stages the split's x (converted to fp32) in shared memory;
-//   * each of its 4 warps reads whole 512-byte weight rows, a lane 16 bytes
-//     (16 columns), widened to fp32 in registers; warp w takes the rows
-//     w, w + 4, ... of the split, 8 rows' loads in flight before their
-//     multiply-adds;
-//   * the 4 warps' partial sums are added in shared memory in warp order.
-// Every sum is taken in one fixed order, whatever the launch: repeated
-// launches are bitwise equal.  The weight loads are 16-byte where
-// N % 16 == 0 and w_q is 16-byte aligned, with byte loads at the column tail
-// and otherwise.
+// Design: one launch of clusters of blocks; nothing but `out` is written.
+//  * K is cut into G segments of L rows (below); a cluster owns one column
+//    tile and walks row tiles of at most 16 rows of x (one at decode; more
+//    re-read the codes); its blocks hold the G segments, one a block for
+//    G <= 8, else four ("slots"), so a cluster has at most 8 blocks;
+//  * a block is four consumer warps and one producer warp.  A consumer
+//    thread owns one 32-bit word (4 columns) of each weight row of its
+//    slot's tile: a tile is 512 codes wide with one slot (the four warps
+//    side by side), 128 with four (a warp a segment).  The slot count is a
+//    template parameter, so every shared-memory offset in the hot loop is a
+//    constant.  At a Mixtral expert's two shapes that is 224 blocks either
+//    way (28 tiles x 8 segments; 32 tiles x 7 blocks of 4 segments);
+//  * the producer keeps a ring of stages in shared memory full, a stage 32
+//    contraction rows of each slot's tile and its x rows at those
+//    contraction rows, each a tensor-map box (cp.async.bulk.tensor,
+//    256-byte L2 fetches, zeros past the edges) completing on the stage's
+//    mbarrier; consumers read codes and x from shared memory only, and each
+//    word of codes feeds every row of the row tile;
+//  * dequantization is the exact byte-to-float trick of the packed FFN
+//    (moe_ffn_packed.cu): the code, biased by 128, placed by __byte_perm in
+//    the mantissa of 2^23, minus 2^23 + 128; no int-to-float conversion;
+//  * at the end each consumer thread stores its segment sums straight into
+//    the shared memory of the blocks that fold them (distributed shared
+//    memory; block q folds every S-th float4 of the tile's outputs); after
+//    one cluster barrier each block adds the G segment sums of its outputs,
+//    multiplies by the scale and writes y;
+//  * operands a tensor map cannot describe (N % 16 != 0 or a code base off
+//    16 bytes; K * itemsize % 16 != 0 or an x base off 16 bytes) are staged
+//    by the producer element by element into the same stage layout, so they
+//    feed the same sums.
+//
+// Summation order (load-bearing): L = 512 for K <= 16384, else
+// 32 * ceil(K / 1024); G = ceil(K / L) <= 32;
+// segment g holds contraction rows [g*L, min(K, (g+1)*L)).  For each (row,
+// column): an fmaf chain from 0.f over a segment's rows in contraction
+// order; the G segment sums added in segment order starting from 0.f; then
+// one multiply by scale[n].  The boundaries are a function of K alone: not
+// of M, the row tile, the tile width, the SM count, cluster placement, the
+// staging path or x's dtype.  So a row's output bits do not depend on M or
+// on the other rows, bf16 x gives the bits of the same values in fp32, and
+// launches repeat bitwise.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cstring>
+
+#include "moe_ffn_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;                        // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kLaneCols = 16;                        // one 16-byte weight load a lane
-constexpr int kCols = 32 * kLaneCols;                // 512 columns per block
-constexpr int kRows = 4;                             // rows of x per block
-constexpr int kSplitK = 256;                         // K rows per split
-constexpr int kBatch = 8;                            // weight rows a lane loads at once
-static_assert(kSplitK % (kWarps * kBatch) == 0, "whole batches per split");
+namespace cg = cooperative_groups;
+using fpass::cdiv;
+
+constexpr int kConsumers = 4;                    // consumer warps a block
+constexpr int kThreads = 32 * (kConsumers + 1);  // and one producer warp
+constexpr int kBK = 32;                          // contraction rows a stage
+constexpr int kRowBytes = 4 * 32 * kConsumers;   // a word per consumer lane: 512 codes
+constexpr int kStageCodes = kBK * kRowBytes;     // a stage's codes, over its slots
+constexpr int kSegRows = 512;                    // segment rows up to K = kSegRows * kMaxSegs
+constexpr int kMaxSegs = 32;
+constexpr int kMaxCluster = 8;
+constexpr int kMaxRows = 16;                     // rows of x a row tile covers
+constexpr int kMaxStages = 4;
+constexpr int kGridMax = 65535;                  // tiles a grid spreads (y, z); clusters walk the rest
+static_assert(kMaxSegs <= kMaxCluster * kConsumers, "a cluster holds every segment");
+
+// A call's plan: how K is cut (L, G: a function of K alone) and how the work
+// is laid out (nothing of which changes a sum).
+struct Plan {
+  int M, N, K;
+  int L, G;              // segment rows, segments
+  int S;                 // blocks a cluster
+  int slots;             // segments a block: 1 or 4 (the kernel's SLOTS)
+  int R;                 // rows of x a row tile covers (the kernel's R)
+  int tiles, rtiles;     // column tiles (512 / slots codes), row tiles
+  int own;               // float4s of a tile's outputs that each block of a cluster folds
+  unsigned long long s_magic;   // ceil(2^32 / S): i / S == (i * s_magic) >> 32 for i < 2^16
+  int bulk_w, bulk_x;    // staged as tensor-map boxes (else element by element)
+};
+
+Plan make_plan(int M, int N, int K) {
+  Plan P{};
+  P.M = M;
+  P.N = N;
+  P.K = K;
+  P.L = K <= kSegRows * kMaxSegs ? kSegRows : kBK * cdiv(K, kBK * kMaxSegs);
+  P.G = cdiv(K, P.L);
+  P.slots = P.G <= kMaxCluster ? 1 : kConsumers;
+  P.S = cdiv(P.G, P.slots);
+  P.R = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : kMaxRows;
+  P.tiles = cdiv(N, kRowBytes / P.slots);
+  P.rtiles = cdiv(M, P.R);
+  P.own = cdiv(P.R * kRowBytes / P.slots / 4, P.S);
+  P.s_magic = (0x100000000ull + P.S - 1) / P.S;
+  return P;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Byte i of v, sign-extended, as fp32.
-__device__ __forceinline__ float byte_f32(int v, int i) {
-  return static_cast<float>((v << (24 - 8 * i)) >> 24);
+template <class XT> __device__ __forceinline__ XT zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16((unsigned short)0);
 }
 
-int k_splits(int K) { return (K + kSplitK - 1) / kSplitK; }
+// The four int8 codes of a word as exact fp32 values: 0x4B0000bb is
+// 2^23 + bb, and bb is the code plus 128.
+__device__ __forceinline__ void deq4(uint32_t word, float (&q)[4]) {
+  const uint32_t biased = word ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    q[j] = __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u | j)), 8388736.f);
+}
 
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, float* __restrict__ out,
-                   float* __restrict__ ws, int M, int N, int K) {
-  __shared__ float xs[kRows][kSplitK];
-  __shared__ __align__(16) float red[kWarps][kRows][kCols];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int col0 = blockIdx.x * kCols + lane * kLaneCols;
-  const int row0 = blockIdx.y * kRows;
-  const int rows = min(kRows, M - row0);
-  const int kbeg = blockIdx.z * kSplitK;
-  const int klen = min(kSplitK, K - kbeg);
-  const bool vec = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0) &&
-                   (col0 + kLaneCols <= N);
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
 
-  for (int i = threadIdx.x; i < kRows * kSplitK; i += kThreads) {
-    const int r = i / kSplitK, kk = i % kSplitK;
-    xs[r][kk] = (r < rows && kk < klen) ? to_f32(x[(long long)(row0 + r) * K + kbeg + kk]) : 0.f;
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// n (4 or 8) consecutive values of a staged x row at shared address a, as
+// fp32 (bf16 -> fp32 is exact).
+template <int n> __device__ __forceinline__ void ldsx(const float*, uint32_t a, float* v) {
+#pragma unroll
+  for (int h = 0; h < n; h += 4) {
+    const float4 f = lds128(a + 4 * h);
+    v[h] = f.x;
+    v[h + 1] = f.y;
+    v[h + 2] = f.z;
+    v[h + 3] = f.w;
+  }
+}
+template <int n> __device__ __forceinline__ void ldsx(const __nv_bfloat16*, uint32_t a, float* v) {
+  uint32_t u[4];
+  if (n == 8)
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3])
+                 : "r"(a));
+  else
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(u[0]), "=r"(u[1]) : "r"(a));
+#pragma unroll
+  for (int h = 0; h < n / 2; ++h) {
+    v[2 * h] = __uint_as_float(u[h] << 16);
+    v[2 * h + 1] = __uint_as_float(u[h] & 0xffff0000u);
+  }
+}
+
+// Elements of a slot's x rows in a stage: R rows of kBK, padded to 128
+// bytes (a tensor copy's destination is 128-byte aligned).
+template <class XT, int R> __host__ __device__ constexpr int x_slot() {
+  return cdiv(R * kBK * (int)sizeof(XT), 128) * 128 / (int)sizeof(XT);
+}
+// A stage: every slot's codes (kStageCodes bytes in all), then each slot's
+// x rows.
+template <class XT, int R, int SLOTS> __host__ __device__ constexpr int stage_bytes() {
+  return kStageCodes + SLOTS * x_slot<XT, R>() * (int)sizeof(XT);
+}
+// The fold's buffer: a block's share of a tile's outputs, for every segment.
+template <int R> __host__ __device__ constexpr int red_bytes() {
+  return R * kRowBytes * 4 + 16 * kMaxSegs;
+}
+// The ring's depth: as deep as keeps a block within 74 KB (three blocks an
+// SM) up to R = 8, within 110 KB (two) at R = 16, up to kMaxStages.
+template <class XT, int R, int SLOTS> __host__ __device__ constexpr int ring_stages() {
+  return ((R >= kMaxRows ? 110 : 74) * 1024 - red_bytes<R>() - 2 * kMaxStages * 8) /
+                     stage_bytes<XT, R, SLOTS>() >
+                 kMaxStages
+             ? kMaxStages
+             : ((R >= kMaxRows ? 110 : 74) * 1024 - red_bytes<R>() - 2 * kMaxStages * 8) /
+                   stage_bytes<XT, R, SLOTS>();
+}
+template <class XT, int R, int SLOTS> constexpr size_t smem_bytes() {
+  return (size_t)ring_stages<XT, R, SLOTS>() * stage_bytes<XT, R, SLOTS>() + red_bytes<R>() +
+         2 * ring_stages<XT, R, SLOTS>() * sizeof(uint64_t);
+}
+
+// Grid: (S, column tiles, row tiles), at most kGridMax of each tile;
+// clusters of S blocks along x, so blockIdx.x is a block's rank; a cluster
+// walks column tiles blockIdx.y, blockIdx.y + gridDim.y, ... and row tiles
+// likewise.  A tile is 512 / SLOTS codes wide, so the kernel divides by
+// nothing but constants.
+template <class XT, int R, int SLOTS>
+__global__ void __launch_bounds__(kThreads, 2)
+int8_matmul_kernel(const __grid_constant__ CUtensorMap mw, const __grid_constant__ CUtensorMap mx,
+                   const XT* __restrict__ x, const unsigned char* __restrict__ w,
+                   const float* __restrict__ scale, float* __restrict__ out, const Plan P) {
+  constexpr int kTile = kRowBytes / SLOTS;       // codes (columns) of a tile row
+  constexpr int kWc = kConsumers / SLOTS;        // consumer warps across a tile
+  constexpr int kStage = stage_bytes<XT, R, SLOTS>();
+  constexpr int kStages = ring_stages<XT, R, SLOTS>();
+  constexpr int kX = x_slot<XT, R>();
+  constexpr int kXs = (int)sizeof(XT);
+  constexpr int kUnits = R * kTile / 4;          // float4s of a tile's outputs
+  constexpr int kRun = R >= 8 ? 4 : 8;           // contraction rows whose loads go out together
+  static_assert(kStages >= 2, "ring depth");
+  extern __shared__ __align__(128) unsigned char smem[];   // 128-byte aligned: tensor copies
+  float4* red = reinterpret_cast<float4*>(smem + (size_t)kStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)kStages * kStage + red_bytes<R>());
+  uint64_t* empty = full + kStages;
+  const uint32_t sbase = fpass::smem_u32(smem);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g0 = rank * SLOTS;                           // the block's first segment (< G)
+  const int nst = cdiv(min(P.L, P.K - g0 * P.L), kBK);   // stages: its first segment is its longest
+  // ring position, carried from one tile to the next
+  int stage = 0;
+  uint32_t phase = 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      fpass::mbar_init(&full[s], 32);            // the producer's lanes
+      fpass::mbar_init(&empty[s], kConsumers);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  float acc[kRows][kLaneCols];
+  for (int ct = blockIdx.y; ct < P.tiles; ct += gridDim.y) {
+  for (int rt = blockIdx.z; rt < P.rtiles; rt += gridDim.z) {
+    const int n0 = ct * kTile, row0 = rt * R;
+    if (warp == kConsumers) {
+      // ---------------------------------------------------------- producer
+      const int cols = min(kTile, P.N - n0);
+      for (int j = 0; j < nst; ++j) {
+        fpass::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + (size_t)stage * kStage;
+        XT* xs = reinterpret_cast<XT*>(st + kStageCodes);
+        uint32_t ntx = 0;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+        for (int s = 0; s < SLOTS; ++s) {
+          const int g = g0 + s;
+          const int k0 = g * P.L + j * kBK;
+          const int nk = g < P.G ? min(kBK, min(P.K, (g + 1) * P.L) - k0) : 0;
+          if (nk <= 0) continue;
+          if (P.bulk_w) {
+            ntx += kBK * kTile;
+          } else {
+            const unsigned char* src = w + (size_t)k0 * P.N + n0;
+            unsigned char* dst = st + s * kBK * kTile;
+            for (int i = lane; i < kBK * kTile; i += 32) {
+              const int k = i / kTile, b = i % kTile;
+              dst[i] = k < nk && b < cols ? src[(size_t)k * P.N + b] : 0;
+            }
+          }
+          if (P.bulk_x) {
+            ntx += R * kBK * kXs;
+          } else {
+            XT* dst = xs + s * kX;
+            for (int i = lane; i < R * kBK; i += 32) {
+              const int r = i / kBK, k = i % kBK;
+              dst[i] = k < nk && row0 + r < P.M ? x[(size_t)(row0 + r) * P.K + k0 + k]
+                                                : zero<XT>();
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) fpass::mbar_arrive_expect_tx(&full[stage], ntx);
+        else fpass::mbar_arrive(&full[stage]);
+        if (lane == 0) {
 #pragma unroll
-    for (int j = 0; j < kLaneCols; ++j) acc[r][j] = 0.f;
-  const int8_t* wsplit = w + (long long)kbeg * N + col0;
-  for (int k0 = 0; k0 < kSplitK; k0 += kWarps * kBatch) {
-    int4 wq[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int kk = k0 + warp + u * kWarps;
-      const int8_t* wr = wsplit + (long long)kk * N;
-      if (kk >= klen) {
-        wq[u] = make_int4(0, 0, 0, 0);
-      } else if (vec) {
-        wq[u] = *reinterpret_cast<const int4*>(wr);
-      } else {
-        int b[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int j = 0; j < kLaneCols; ++j)
-          if (col0 + j < N) b[j / 4] |= static_cast<int>(static_cast<uint8_t>(wr[j])) << (8 * (j % 4));
-        wq[u] = make_int4(b[0], b[1], b[2], b[3]);
+          for (int s = 0; s < SLOTS; ++s) {
+            const int g = g0 + s;
+            const int k0 = g * P.L + j * kBK;
+            if (g >= P.G || k0 >= min(P.K, (g + 1) * P.L)) continue;
+            if (P.bulk_w) fpass::tma_load(st + s * kBK * kTile, &mw, n0 / 4, k0, 0, &full[stage]);
+            if (P.bulk_x) fpass::tma_load(xs + s * kX, &mx, k0, row0, 0, &full[stage]);
+          }
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-    }
+    } else {
+      // ---------------------------------------------------------- consumers
+      const int wc = warp % kWc, s = warp / kWc;
+      const int g = g0 + s;
+      const int kseg = g * P.L;
+      const int kend = g < P.G ? min(P.K, kseg + P.L) : kseg;
+      const int u4 = wc * 32 + lane;               // the thread's float4 of a tile row
+      float acc[R][4];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int kk = k0 + warp + u * kWarps;
-      const int words[4] = {wq[u].x, wq[u].y, wq[u].z, wq[u].w};
-      float wv[kLaneCols];
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < kLaneCols; ++j) wv[j] = byte_f32(words[j / 4], j % 4);
+        for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+      for (int j = 0; j < nst; ++j) {
+        fpass::mbar_wait(&full[stage], phase);
+        const uint32_t sst = sbase + (uint32_t)(stage * kStage);
+        // this thread's word of the slot's row 0, and the slot's x rows
+        const uint32_t aw = sst + (uint32_t)(s * kBK * kTile + u4 * 4);
+        const uint32_t ax = sst + (uint32_t)(kStageCodes + s * kX * kXs);
+        const int nk = kend - (kseg + j * kBK);
+        if (nk >= kBK) {
+          // a whole stage: kRun rows' codes and x go out, then their FMAs
+#pragma unroll 2
+          for (int k0 = 0; k0 < kBK; k0 += kRun) {
+            uint32_t wv[kRun];
+            float xq[R][kRun];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          const float xv = xs[r][kk];               // zero past klen: adds exact zeros
+            for (int u = 0; u < kRun; ++u) wv[u] = lds32(aw + (uint32_t)((k0 + u) * kTile));
 #pragma unroll
-          for (int j = 0; j < kLaneCols; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
+            for (int r = 0; r < R; ++r)
+              ldsx<kRun>((const XT*)nullptr, ax + (uint32_t)((r * kBK + k0) * kXs), xq[r]);
+#pragma unroll
+            for (int u = 0; u < kRun; ++u) {
+              float q[4];
+              deq4(wv[u], q);
+#pragma unroll
+              for (int r = 0; r < R; ++r)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(xq[r][u], q[i], acc[r][i]);
+            }
+          }
+        } else {
+          // the segment's last, partial stage: row by row
+          const XT* xs = reinterpret_cast<const XT*>(smem + (ax - sbase));
+          for (int k = 0; k < nk; ++k) {
+            float q[4];
+            deq4(lds32(aw + (uint32_t)(k * kTile)), q);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float xv = to_f32(xs[r * kBK + k]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(xv, q[i], acc[r][i]);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) fpass::mbar_arrive(&empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (g < P.G) {
+        // the segment's sums to the blocks that fold them: float4 i of the
+        // tile's outputs to block i % S, at red[g][i / S]
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const unsigned i = (unsigned)(r * (kTile / 4) + u4);
+          const unsigned q = (unsigned)((i * P.s_magic) >> 32);
+          *(cluster.map_shared_rank(red, i - q * P.S) + g * P.own + q) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
         }
       }
     }
+    cluster.sync();
+
+    // -------------------------------------------------------------- the fold
+    // Each block adds, for its share of the tile's outputs (four columns a
+    // thread), the G segment sums in segment order from 0.f, and applies
+    // the scale.
+    if (warp < kConsumers) {
+      for (int q = threadIdx.x; q < P.own; q += 32 * kConsumers) {
+        const int i = q * P.S + rank;
+        if (i >= kUnits) break;
+        const int r = i / (kTile / 4), n = n0 + (i % (kTile / 4)) * 4;
+        if (row0 + r >= P.M || n >= P.N) continue;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+        const uint32_t a = fpass::smem_u32(red + q);
+        for (int g = 0; g < P.G; ++g) {
+          const float4 v = lds128(a + (uint32_t)(g * P.own * 16));
+          sum[0] = __fadd_rn(sum[0], v.x);
+          sum[1] = __fadd_rn(sum[1], v.y);
+          sum[2] = __fadd_rn(sum[2], v.z);
+          sum[3] = __fadd_rn(sum[3], v.w);
+        }
+        float* o = out + (size_t)(row0 + r) * P.N + n;
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          if (n + h < P.N) o[h] = __fmul_rn(sum[h], __ldg(scale + n + h));
+      }
+    }
+    // another tile's sums may arrive only once every block has folded this one's
+    if (rt + (int)gridDim.z < P.rtiles || ct + (int)gridDim.y < P.tiles) cluster.sync();
   }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kLaneCols; j += 4)
-      *reinterpret_cast<float4*>(&red[warp][r][lane * kLaneCols + j]) =
-          make_float4(acc[r][j], acc[r][j + 1], acc[r][j + 2], acc[r][j + 3]);
-  __syncthreads();
-  const bool split = gridDim.z > 1;
-  for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
-    const int r = i / kCols, c = i % kCols;
-    const int col = blockIdx.x * kCols + c;
-    if (r >= rows || col >= N) continue;
-    float s = 0.f;
-    for (int q = 0; q < kWarps; ++q) s += red[q][r][c];
-    const long long o = (long long)(row0 + r) * N + col;
-    if (split)
-      ws[(long long)blockIdx.z * M * N + o] = s;
-    else
-      out[o] = s * scale[col];
   }
 }
 
-// out[i] = (sum over splits s = 0..S-1 of ws[s][i]) * scale[i % N]
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_reduce(const float* __restrict__ ws, const float* __restrict__ scale,
-                   float* __restrict__ out, long long MN, int N, int splits) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int q = 0; q < splits; ++q) s += ws[(long long)q * MN + i];
-  out[i] = s * scale[i % N];
+// Set the kernel's shared-memory limit and carveout once per device.
+template <class XT, int R, int SLOTS> cudaError_t prepare() {
+  static int done[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (done[dev]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(int8_matmul_kernel<XT, R, SLOTS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes<XT, R, SLOTS>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(int8_matmul_kernel<XT, R, SLOTS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[dev] = 1;
+  return err;
+}
+
+template <class XT, int R, int SLOTS>
+int launch_slots(const Plan& P, const CUtensorMap& mw, const CUtensorMap& mx, const void* x,
+                 const void* w, const void* scale, void* out, cudaStream_t stream) {
+  cudaError_t err = prepare<XT, R, SLOTS>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)P.S, (unsigned)std::min(P.tiles, kGridMax),
+                     (unsigned)std::min(P.rtiles, kGridMax));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<XT, R, SLOTS>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P.S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, int8_matmul_kernel<XT, R, SLOTS>, mw, mx,
+                           static_cast<const XT*>(x), static_cast<const unsigned char*>(w),
+                           static_cast<const float*>(scale), static_cast<float*>(out), P);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <class XT, int R>
+int launch_rows(const Plan& P, const CUtensorMap& mw, const CUtensorMap& mx, const void* x,
+                const void* w, const void* scale, void* out, cudaStream_t stream) {
+  if (P.slots == 1) return launch_slots<XT, R, 1>(P, mw, mx, x, w, scale, out, stream);
+  return launch_slots<XT, R, kConsumers>(P, mw, mx, x, w, scale, out, stream);
+}
+
+template <class XT>
+int launch_x(const Plan& P, const CUtensorMap& mw, const CUtensorMap& mx, const void* x,
+             const void* w, const void* scale, void* out, cudaStream_t stream) {
+  switch (P.R) {
+    case 1: return launch_rows<XT, 1>(P, mw, mx, x, w, scale, out, stream);
+    case 2: return launch_rows<XT, 2>(P, mw, mx, x, w, scale, out, stream);
+    case 4: return launch_rows<XT, 4>(P, mw, mx, x, w, scale, out, stream);
+    case 8: return launch_rows<XT, 8>(P, mw, mx, x, w, scale, out, stream);
+    default: return launch_rows<XT, kMaxRows>(P, mw, mx, x, w, scale, out, stream);
+  }
 }
 
 }  // namespace
 
-// The number of K splits for (M, N, K): the caller allocates a workspace of
-// splits * M * N floats when it is above 1.
-extern "C" int int8_matmul_splits(int M, int N, int K) { return k_splits(K); }
+// The plan of a call, for reports: plan[0..6] = segment rows L, segments G,
+// blocks a cluster, segments a block, column tile (codes), row tile, blocks
+// launched.  Returns 0.
+extern "C" int int8_matmul_plan(int M, int N, int K, int* plan) {
+  const Plan P = make_plan(M, N, K);
+  const int v[7] = {P.L, P.G, P.S, P.slots, kRowBytes / P.slots, P.R,
+                    P.S * std::min(P.tiles, kGridMax) * std::min(P.rtiles, kGridMax)};
+  memcpy(plan, v, sizeof(v));
+  return 0;
+}
 
-// x_bf16: 0 for fp32 x, 1 for bf16 x.  ws may be null when
-// int8_matmul_splits(M, N, K) == 1.  Launches on `stream` and returns the
-// cudaError_t of the launches (0 = success).
+// x_bf16: 0 for fp32 x, 1 for bf16 x.  One launch on `stream`, which writes
+// every element of `out`.  Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int int8_matmul_launch(const void* x, int x_bf16, const void* w, const void* scale,
-                                  void* out, void* ws, int M, int N, int K, void* stream) {
-  const int splits = k_splits(K);
-  const dim3 grid((N + kCols - 1) / kCols, (M + kRows - 1) / kRows, splits);
+                                  void* out, int M, int N, int K, void* stream) {
+  Plan P = make_plan(M, N, K);
+  const size_t xsize = x_bf16 ? 2 : 4;
+  P.bulk_w = N % 16 == 0 && fpass::aligned16(w);
+  P.bulk_x = ((size_t)K * xsize) % 16 == 0 && fpass::aligned16(x);
+  CUtensorMap mw, mx;
+  memset(&mw, 0, sizeof(mw));
+  memset(&mx, 0, sizeof(mx));
+  // codes as (N / 4, K) words, boxes of a tile's run of 32 rows; x as (K, M),
+  // boxes of 32 contraction rows of a row tile
+  if (P.bulk_w && !fpass::make_map(&mw, w, CU_TENSOR_MAP_DATA_TYPE_UINT32, N / 4, K, 1, N,
+                                   (uint64_t)N * K, kRowBytes / P.slots / 4, kBK))
+    return (int)cudaErrorInvalidValue;
+  if (P.bulk_x &&
+      !fpass::make_map(&mx, x,
+                       x_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       K, M, 1, (uint64_t)K * xsize, (uint64_t)K * xsize * M, kBK, P.R))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    int8_matmul_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<float*>(out), static_cast<float*>(ws), M,
-        N, K);
-  else
-    int8_matmul_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<float*>(out), static_cast<float*>(ws), M,
-        N, K);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long MN = (long long)M * N;
-  int8_matmul_reduce<<<(unsigned)((MN + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(scale), static_cast<float*>(out),
-      MN, N, splits);
-  return static_cast<int>(cudaGetLastError());
+  if (x_bf16) return launch_x<__nv_bfloat16>(P, mw, mx, x, w, scale, out, st);
+  return launch_x<float>(P, mw, mx, x, w, scale, out, st);
 }

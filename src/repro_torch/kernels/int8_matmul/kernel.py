@@ -14,19 +14,31 @@ import torch
 
 from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
 
-_GRID_YZ_MAX = 65535            # row tiles of 4 and K splits of 256 ride on y and z
-_ROWS_PER_TILE, _SPLIT_K = 4, 256
-
 
 def _bind(lib) -> None:
-    lib.int8_matmul_splits.argtypes = [ctypes.c_int] * 3
-    lib.int8_matmul_splits.restype = ctypes.c_int
-    lib.int8_matmul_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.int8_matmul_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.int8_matmul_plan.restype = ctypes.c_int
+    lib.int8_matmul_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
                                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.int8_matmul_launch.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary("int8_matmul", "int8_matmul.cu", bind=_bind)
+LIBRARY = CudaLibrary("int8_matmul", "int8_matmul.cu", headers=("moe_ffn_common.cuh",),
+                      bind=_bind)
+
+_PLAN_KEYS = ("segment_rows", "segments", "cluster_blocks", "block_segments", "tile_bytes",
+              "row_tile", "blocks")
+
+
+def plan(m: int, n: int, k: int) -> dict:
+    """How a call of shape (M, K) x (K, N) is cut: K into ``segments`` of
+    ``segment_rows`` (a function of K alone, which fixes every sum's order),
+    clusters of ``cluster_blocks`` blocks of ``block_segments`` segments
+    each, column tiles of ``tile_bytes`` codes, row tiles of ``row_tile``
+    rows of x, ``blocks`` in all."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    LIBRARY.lib.int8_matmul_plan(m, n, k, out)
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def int8_matmul_kernel(x, w_q, scale):
@@ -47,19 +59,13 @@ def int8_matmul_kernel(x, w_q, scale):
     check_tensor("scale", scale, (n,), torch.float32, x.device)
     if min(m, k, n) <= 0:
         raise ValueError("int8_matmul_kernel needs non-empty M, K and N")
-    if -(-m // _ROWS_PER_TILE) > _GRID_YZ_MAX or -(-k // _SPLIT_K) > _GRID_YZ_MAX:
-        raise ValueError(f"M={m} and K={k} must be at most {_GRID_YZ_MAX * _ROWS_PER_TILE} "
-                         f"and {_GRID_YZ_MAX * _SPLIT_K}")
     lib = LIBRARY.lib
-    splits = lib.int8_matmul_splits(m, n, k)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.int8_matmul_launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                                     w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                     None if ws is None else ws.data_ptr(), m, n, k, stream)
+                                     w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
+                                     stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
     int8_matmul_kernel.launches += 1

@@ -753,6 +753,118 @@ def test_int8_kernel_refuses_bad_inputs(dev):
     assert int8_matmul_kernel.launches == before
 
 
+def _bits(a):
+    return a.view(torch.int32)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096)])
+@pytest.mark.parametrize("m", [13, 8])
+def test_int8_kernel_rows_equal_their_own_single_row_launch(dev, m, k, n):
+    """A segment's sums and their fold depend on K alone: a row's bits do
+    not depend on M, the row tile or the other rows."""
+    x, wq, sc = _int8(dev, m, k, n, torch.float32, seed=m + 1)
+    full = int8_matmul_kernel(x, wq, sc)
+    for i in range(m):
+        assert torch.equal(_bits(int8_matmul_kernel(x[i:i + 1], wq, sc)), _bits(full[i:i + 1])), i
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 14336), (4, 14336, 4096), (13, 4096, 14336),
+                                   (5, 70, 33), (3, 5000, 160)])
+def test_int8_kernel_bf16_x_gives_the_bits_of_fp32_x(dev, m, k, n):
+    x, wq, sc = _int8(dev, m, k, n, torch.bfloat16, seed=k)
+    assert torch.equal(_bits(int8_matmul_kernel(x, wq, sc)),
+                       _bits(int8_matmul_kernel(x.float(), wq, sc)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 700, 4096), (2, 1500, 528), (3, 2500, 160),
+                                   (4, 3500, 1040), (4, 4100, 256), (4, 16385, 256),
+                                   (4, 1, 4096), (1, 1, 16), (5, 4096, 33), (4, 14336, 100),
+                                   (17, 600, 48)])
+def test_int8_kernel_ragged_segments_one_row_of_k_and_narrow_n(dev, m, k, n, dtype):
+    """K off the segment length (2, 3, 5 and 7 segments of 512 rows: clusters
+    of 2, 3, 5 and 7 blocks; 9 and 31 segments of 512 and 544 rows: clusters
+    of 3 and 8 blocks of four segments, the last with idle slots), K = 1, N
+    below one column tile, two row tiles."""
+    x, wq, sc = _int8(dev, m, k, n, dtype, seed=m + k + n)
+    got = int8_matmul_kernel(x, wq, sc)
+    want = int8_matmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    assert float((got - want).abs().max()) <= REL_TOL * float(want.abs().max())
+
+
+def test_int8_kernel_many_row_tiles_at_mixtral_width(dev):
+    x, wq, sc = _int8(dev, 64, 4096, 14336, torch.float32, seed=64)
+    got = int8_matmul_kernel(x, wq, sc)
+    want = int8_matmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= REL_TOL * float(want.abs().max())
+    assert torch.equal(_bits(int8_matmul_kernel(x[40:41], wq, sc)), _bits(got[40:41]))
+
+
+def test_int8_kernel_more_row_tiles_than_the_grid_spreads(dev):
+    """Past 65535 row tiles of 16 a cluster walks several row tiles."""
+    m = 16 * 65535 + 5
+    x, wq, sc = _int8(dev, m, 8, 16, torch.float32, seed=2)
+    got = int8_matmul_kernel(x, wq, sc)
+    want = int8_matmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= REL_TOL * float(want.abs().max())
+    for i in (0, 16 * 65535 - 1, 16 * 65535, m - 1):
+        assert torch.equal(_bits(int8_matmul_kernel(x[i:i + 1], wq, sc)), _bits(got[i:i + 1]))
+
+
+def _offset(t, nbytes):
+    """A copy of t whose data starts `nbytes` past a 16-byte boundary."""
+    step = t.element_size()
+    buf = torch.empty(t.numel() + nbytes // step, dtype=t.dtype, device=t.device)
+    out = buf[nbytes // step:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes % 16
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 14336), (4, 14336, 4096), (13, 700, 256)])
+def test_int8_kernel_element_staging_gives_the_tensor_copy_bits(dev, m, k, n, dtype):
+    """Codes or x off a 16-byte boundary are staged element by element into
+    the tensor copies' layout: the same sums, bit for bit."""
+    x, wq, sc = _int8(dev, m, k, n, dtype, seed=9)
+    bulk = int8_matmul_kernel(x, wq, sc)
+    assert torch.equal(_bits(int8_matmul_kernel(x, _offset(wq, 4), sc)), _bits(bulk))
+    assert torch.equal(_bits(int8_matmul_kernel(_offset(x, 8), wq, sc)), _bits(bulk))
+
+
+@pytest.mark.parametrize("n", [33, 100, 4090])
+def test_int8_kernel_ragged_n_gives_the_bits_of_a_padded_call(dev, n):
+    """N % 16 != 0 stages codes element by element; the columns equal those
+    of the same codes padded to a whole tensor-map row."""
+    pad = -(-n // 16) * 16
+    x, wq, sc = _int8(dev, 4, 1000, pad, torch.float32, seed=n)
+    full = int8_matmul_kernel(x, wq, sc)
+    part = int8_matmul_kernel(x, wq[:, :n].contiguous(), sc[:n].contiguous())
+    assert torch.equal(_bits(part), _bits(full[:, :n]))
+
+
+def test_int8_kernel_plan_is_one_launch_with_segments_set_by_k(dev):
+    from repro_torch.kernels.int8_matmul import kernel as int8_lib
+    up, down = int8_lib.plan(4, 14336, 4096), int8_lib.plan(4, 4096, 14336)
+    assert (up["segments"], up["segment_rows"], up["cluster_blocks"]) == (8, 512, 8)
+    assert (down["segments"], down["segment_rows"], down["cluster_blocks"]) == (28, 512, 7)
+    assert up["blocks"] == down["blocks"] == 224
+    for m in (1, 8, 13, 64):                # the segments do not depend on M or N
+        for n in (33, 4096):
+            p = int8_lib.plan(m, n, 14336)
+            assert (p["segments"], p["segment_rows"]) == (28, 512)
+    assert int8_lib.plan(1, 16, 16385)["segments"] == 31
+    x, wq, sc = _int8(dev, 4, 4096, 14336, torch.float32)
+    before = torch.cuda.memory_allocated(dev)
+    out = int8_matmul_kernel(x, wq, sc)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) - before == out.numel() * 4   # no workspace
+
+
 # ------------------------------------------------------- prefetch on the card
 @pytest.mark.parametrize("packed", [False, True])
 def test_prefetch_and_residency_on_the_card_equal_sync_and_greedy(dev, packed):
