@@ -80,6 +80,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
              request equals its solo decode; composed-step times by B beside
              the synchronous serve phase's, the prefetch counters, and the
              peak memory while serving beside the serve phase's.
+8c. spec   — speculative decoding on the slice's parameters:
+             ``serve_single`` with a 16-token prompt and 9 tokens at
+             ``--speculate 1`` (the yardstick), 2 and 4 under per-step
+             alignment and 4 free-running (``--token-period 0 --kv-period
+             0``, so drafts get rejected).  Each run's tokens equal
+             ``greedy_generate`` and its waves commit 8 tokens; moe_ffn and
+             flash_decode launch on the spec path.  Prints waves,
+             acceptance, rejected rows, loads, bytes and decode wall time per
+             committed token.  Then a verify wave of B=1, S=4 at W=25 on the
+             first attention layer: each row equals the one-token
+             ``attn_decode`` row, and its cache sequential decode's, bit for
+             bit through the kernel; flash decode timed at that shape beside
+             its bound, plain version and ``scaled_dot_product_attention``.
+8d. spec-serve — the serve phase's traffic with ``--speculate 2``: every
+             request equals its solo decode and commits ``max_new_tokens -
+             1`` in waves; composed-step times by B beside the serve phase's.
 9. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
              width in fp32 (2 layers), transport int8, nf4 and tiered in
              turn: engine tokens equal ``greedy_generate`` under the same
@@ -115,8 +131,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
              (I2F) in its SASS (``cuobjdump``); timed at M in {1, 4, 8} with
              L2 warm and flushed, beside its bytes bound, and at M=4 beside
              its plain version and cuBLAS on weights dequantized beforehand
-             (fp32 and bf16); one kernel launch a call (``torch.profiler``).
-             No path of the port calls it, as in the JAX package.
+             (fp32 and bf16).  No path of the port calls it, as in the JAX
+             package.  Its one-launch-a-call gate (``torch.profiler`` over 5
+             calls at M=4) runs right after the build, as the process's
+             first profiler session.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed.  The script imports nothing of JAX or of the
@@ -1081,6 +1099,184 @@ def phase_prefetch_serve(cfg, params, sync_steps: dict) -> dict:
             "launches": out["launches_serving"]}
 
 
+# (name, speculate, token period, kv period): the yardstick first, then
+# per-step alignment at k = 2 and 4, then a free-running shadow, whose
+# drafts the main model rejects
+SPEC_RUNS = (("k=1", 1, 1, 1), ("k=2", 2, 1, 1), ("k=4", 4, 1, 1), ("k=4 free", 4, 0, 0))
+SPEC_PROMPT, SPEC_TOKENS = 16, 9     # 8 decoded tokens: a multiple of neither width
+
+
+def phase_spec(cfg, params) -> dict:
+    """Speculative decoding through ``serve_single`` on the slice's
+    parameters: every run's tokens equal ``greedy_generate`` and its waves
+    commit ``tokens - 1``; the verify rows of a wave equal one-token rows
+    bit for bit through the flash-decode kernel; the kernel timed at the
+    verify shape."""
+    import torch
+    from repro_torch.launch.serve import KERNELS, build_parser, serve_single
+    out = {"runs": {}, "launches": {name: 0 for name in KERNELS}}
+    for name, k, tp, kp in SPEC_RUNS:
+        args = build_parser().parse_args(
+            ["--prompt-len", str(SPEC_PROMPT), "--tokens", str(SPEC_TOKENS), "--predictor",
+             "sep", "--shadow", "int8", "--transport-precision", "fp32", "--workers", "8",
+             "--seed", "0", "--speculate", str(k), "--token-period", str(tp),
+             "--kv-period", str(kp)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_launches()
+        res = serve_single(cfg, params, args)      # raises unless tokens == greedy_generate
+        launches = res["launches_engine"]
+        trace, eng = res["trace"], res["engine"]
+        drafted = sum(r.spec_len for r in trace.records)
+        committed = sum(r.committed for r in trace.records)
+        if committed != SPEC_TOKENS - 1:
+            fail(f"spec {name}: waves committed {committed} tokens, not {SPEC_TOKENS - 1}")
+        if not torch.equal(res["tokens"].cpu(), res["reference"].cpu()):
+            fail(f"spec {name}: engine tokens differ from greedy_generate")
+        if k > 1:
+            for kern in ("moe_ffn", "flash_decode"):
+                if launches[kern] <= 0:
+                    fail(f"spec {name}: {kern} did not launch on the spec path")
+                out["launches"][kern] += launches[kern]
+        wall = sum(r.seconds for r in trace.records)
+        run = dict(waves=len(trace.records), drafted=drafted, committed=committed,
+                   acceptance=committed / drafted, rejected=drafted - committed,
+                   loads_per_token=eng.slots.stats["loads"] / committed,
+                   bytes_per_token=eng.slots.bytes_moved / committed,
+                   ms_per_token=wall / committed * 1e3, launches=launches)
+        out["runs"][name] = run
+        print(f"[spec] {name:8s}: tokens == greedy_generate; {run['waves']} waves, acceptance "
+              f"{committed}/{drafted} = {run['acceptance']:.3f}, rejected rows "
+              f"{run['rejected']}; per committed token: {run['loads_per_token']:.3f} loads, "
+              f"{run['bytes_per_token'] / 1e9:.3f} GB, decode wall time "
+              f"{run['ms_per_token']:.3f} ms; launches (engine+shadow) moe_ffn "
+              f"{launches['moe_ffn']}, flash_decode {launches['flash_decode']}", flush=True)
+        del res, trace, eng
+    base = out["runs"]["k=1"]["ms_per_token"]
+    print("[spec] decode wall time per committed token against k=1 in this call: "
+          + ", ".join(f"{n} {r['ms_per_token'] / base:.3f}x" for n, r in out["runs"].items()))
+    out.update(spec_verify_rows(cfg, params))
+    return out
+
+
+def spec_verify_rows(cfg, params) -> dict:
+    """A verify wave of B=1, S=4 at W=25 (the spec runs' window) on the
+    slice's first attention layer: each row equals ``attn_decode`` on the
+    cache sequential decode holds, bit for bit, through the kernel; the
+    kernel at that shape agrees with its plain version within
+    ``KERNEL_TOL``; then it is timed beside its plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import spec_attn_decode
+    from repro_torch.kernels.flash_decode import flash_decode_kernel, flash_decode_ref
+    from repro_torch.models.attention import attn_decode, decode_qkv, init_cache
+    from repro_torch.models.transformer import layer_params
+    S, w, base = 4, SPEC_PROMPT + SPEC_TOKENS, SPEC_PROMPT
+    mixer = layer_params(cfg, params, 0)["mixer"]
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((S, 1, cfg.d_model), generator=gen, device="cuda").to(dt)
+    cache = init_cache(cfg, 1, w, dt, "cuda")
+    cache["k"][0, :base] = torch.randn((base, N_KV, HEAD_DIM), generator=gen, device="cuda").to(dt)
+    cache["v"][0, :base] = torch.randn((base, N_KV, HEAD_DIM), generator=gen, device="cuda").to(dt)
+    cache["pos"][0, :base] = torch.arange(base, device="cuda", dtype=torch.int32)
+    pos = torch.arange(base, base + S, device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        before = flash_decode_kernel.launches
+        out, wave = spec_attn_decode(cfg, mixer, x, cache, pos, S)
+        if flash_decode_kernel.launches != before + 1:
+            fail("the verify wave did not run as one flash-decode launch")
+        seq = cache
+        for s in range(S):
+            one, seq = attn_decode(cfg, mixer, x[s:s + 1], seq, pos[s:s + 1])
+            if not torch.equal(one, out[s:s + 1]):
+                fail(f"verify row {s} differs from the one-token attn_decode row")
+            for n in ("k", "v", "pos"):
+                if not torch.equal(seq[n], wave[n][s:s + 1]):
+                    fail(f"verify row {s}'s cache {n} differs from sequential decode's")
+        q, _, _ = decode_qkv(cfg, mixer, x, pos)
+    q = q[:, 0].reshape(S, N_KV, GROUP, HEAD_DIM).contiguous()
+    k, v, kpos = wave["k"], wave["v"], wave["pos"]
+    qs = q.reshape(S, N_KV * GROUP, 1, HEAD_DIM)
+    ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = ((kpos >= 0) & (kpos <= pos[:, None]))[:, None, None, :]
+    o = flash_decode_kernel(q, k, v, kpos, pos)
+    p = flash_decode_ref(q, k, v, kpos, pos)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(o).all()):
+        fail(f"flash output not finite at the verify shape (B*S={S}, W={w})")
+    err = float((o - p).abs().max())
+    rel = err / float(p.abs().max())
+    if rel > KERNEL_TOL:
+        fail(f"flash kernel disagrees with its plain version at the verify shape "
+             f"(B*S={S}, W={w}): {rel:.3e}")
+    t_k = median_ms(lambda: flash_decode_kernel(q, k, v, kpos, pos))
+    t_p = median_ms(lambda: flash_decode_ref(q, k, v, kpos, pos), iters=20)
+    t_l = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                           enable_gqa=True))
+    b_ms, b_by, nbytes = flash_bound_ms(S, w, 2)
+    print(f"[spec] verify wave B=1 S={S} W={w} ({cfg.dtype}, layer 0): every row == the "
+          f"one-token attn_decode row and its cache == sequential decode's, bitwise, through "
+          f"the kernel (one launch)")
+    print(f"[spec] flash_decode at the verify shape (B*S={S} rows, W={w}, bf16): kernel "
+          f"{t_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes} bytes), plain {t_p:.4f} ms, "
+          f"scaled_dot_product_attention {t_l:.4f} ms (device time, median of 25 / 20 / 25 "
+          f"launches); max|k-p| {err:.3e}, max|k-p|/max|p| {rel:.3e} (tolerance "
+          f"{KERNEL_TOL:g})", flush=True)
+    flash_decode_kernel.launches = 0         # comparison launches do not count
+    return {"verify": dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=err)}
+
+
+def phase_spec_serve(cfg, params, sync_steps: dict) -> dict:
+    """The serve phase's traffic with ``--speculate 2``: every request
+    equals its solo decode and commits ``max_new_tokens - 1`` in waves."""
+    import math
+    import torch
+    from repro_torch.launch.serve import build_parser, serve_traffic
+    from repro_torch.serve import make_traffic
+    max_batch, page_tokens = 4, 16
+    reqs = make_traffic(cfg, 8, 0.0, prompt_len=128, max_new=8, seed=SERVE_SEED)
+    window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+    pages = math.ceil(window / page_tokens) * max_batch // 2
+    args = build_parser().parse_args(
+        ["--requests", "8", "--arrival-rate", "0", "--prompt-len", "128", "--tokens", "8",
+         "--max-batch", str(max_batch), "--compose", "overlap", "--predictor", "sep",
+         "--shadow", "int8", "--transport-precision", "fp32", "--workers", "8",
+         "--seed", str(SERVE_SEED), "--kv-pages", str(pages),
+         "--page-tokens", str(page_tokens), "--speculate", "2"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = serve_traffic(cfg, params, args)       # raises unless every request == solo
+    res = out["result"]
+    for name in ("moe_ffn", "flash_decode"):
+        if out["launches_serving"][name] <= 0:
+            fail(f"spec-serve: {name} did not launch on the serving side")
+    ss = res.spec_stats
+    if ss is None or ss["speculate"] != 2:
+        fail(f"spec-serve: no speculation stats ({ss})")
+    for r in reqs:
+        if ss["per_request"][r.rid]["committed"] != r.max_new_tokens - 1:
+            fail(f"spec-serve: request {r.rid} committed "
+                 f"{ss['per_request'][r.rid]['committed']}, not {r.max_new_tokens - 1}")
+    by_b = steps_by_b(res)
+    st = res.kv_stats
+    print(f"[spec-serve] serve_traffic took {time.perf_counter() - t0:.1f} s; tokens of all "
+          f"{len(reqs)} requests == solo greedy_generate; each committed max_new_tokens - 1 in "
+          f"waves; acceptance {ss['acceptance']:.3f} over {ss['waves']} request-waves; mean "
+          f"batch {res.mean_batch:.2f} over {len(res.steps)} composed steps; preemptions "
+          f"{st['preemptions']}; peak device memory while serving "
+          f"{out['serving_peak_bytes'] / 1e9:.2f} GB; launches (engine+shadow) "
+          f"{out['launches_serving']}")
+    print(f"[spec-serve] composed step (k=2): {fmt_steps(by_b)}; synchronous serve phase of "
+          f"this run: {fmt_steps(sync_steps)}", flush=True)
+    return {"steps_by_b": by_b, "stats": ss, "launches": out["launches_serving"],
+            "peak_gb": out["serving_peak_bytes"] / 1e9,
+            "built_gb": out["build_peak_bytes"] / 1e9}
+
+
 INT8_SWEEP = ((32, 128, 64), (64, 256, 96), (13, 70, 33))   # tests/test_kernels.py's shapes
 INT8_SHAPES = ((D_MODEL, D_EXPERT), (D_EXPERT, D_MODEL))      # a Mixtral-8x7B expert's matrices
 INT8_TIME_ROWS = (1, 4, 8)
@@ -1190,13 +1386,15 @@ def int8_sass(lib_path: str) -> None:
             fail(f"int8 kernel {name} has {i2f} int-to-float conversions (I2F) in its SASS")
 
 
-def int8_profile(kernel, m, k, n) -> None:
+def int8_profile(m, k, n) -> None:
     """One call is one kernel: ``torch.profiler`` over 5 calls sees the w8a16
-    kernel and no other (no reduction, no workspace fill).  After the other
-    phases' profiles in the same process the profiler may keep fewer than
-    all 5 records; the count is printed."""
+    kernel and no other (no reduction, no workspace fill).  Run as the
+    process's first profiler session: after the other phases' profiles the
+    profiler kept one record of the 5 calls in one run and none in another;
+    the count is printed, and its launches do not count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.int8_matmul import int8_matmul_kernel as kernel
     x, wq, sc = int8_inputs(m, k, n, torch.float32, seed=1)
     kernel(x, wq, sc)
     torch.cuda.synchronize()
@@ -1212,6 +1410,7 @@ def int8_profile(kernel, m, k, n) -> None:
     if not events or any("int8_matmul_kernel" not in name or count > 5
                          for name, count, _ in events):
         fail("an int8 matmul call launched another kernel than its one")
+    kernel.launches = 0
 
 
 def phase_int8() -> dict:
@@ -1278,7 +1477,6 @@ def phase_int8() -> dict:
                   f"{t_l16:.4f} ms (bf16) (device time, median of 25 / 20 / 25 launches)",
                   flush=True)
             del x, wq, sc, w32, w16, x32, x16
-    int8_profile(int8_matmul_kernel, 4, D_MODEL, D_EXPERT)
     int8_matmul_kernel.launches = 0        # comparison launches do not count
     torch.cuda.empty_cache()
     return rows
@@ -1699,6 +1897,9 @@ def main():
     smi_line = phase_card()
     import torch
     phase_build()
+    # the process's first profiler session: later ones may keep no record
+    # of a short call, which would leave the one-launch gate undecided
+    int8_profile(4, D_MODEL, D_EXPERT)
     rows = phase_kernel()
     prows = phase_packed_kernel()
     frows = phase_flash()
@@ -1708,6 +1909,8 @@ def main():
     serve = phase_serve(cfg, params)
     prefetch = phase_prefetch(cfg, params)
     pserve = phase_prefetch_serve(cfg, params, serve["steps_by_b"])
+    spec = phase_spec(cfg, params)
+    sserve = phase_spec_serve(cfg, params, serve["steps_by_b"])
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1720,11 +1923,11 @@ def main():
     torch.cuda.empty_cache()
     irows = phase_int8()
     row, row32 = rows[(2, 1)], rows[("fp32", 2, 1)]
-    prow, frow = prows[("int8", 2, 1)], frows[(4, 144)]
+    prow, frow, vrow = prows[("int8", 2, 1)], frows[(4, 144)], spec["verify"]
     srow, irow = srows[(1, 4)], irows[(D_MODEL, D_EXPERT, torch.float32)]
     print("[memory] peak device memory while serving (while building the engine and pool): "
           + ", ".join(f"{n} {r['peak_gb']:.2f} GB ({r['built_gb']:.2f} GB)" for n, r in
-                      (("serve", serve), ("prefetch-serve", pserve),
+                      (("serve", serve), ("prefetch-serve", pserve), ("spec-serve", sserve),
                        ("jamba-serve", jamba_serve)))
           + "; prefetch runs, peak while decoding: "
           + ", ".join(f"{n} {r['peak_gb']:.2f}" for n, r in prefetch["runs"].items()) + " GB")
@@ -1736,6 +1939,8 @@ def main():
         "source": "src/repro_torch/csrc/moe_ffn.cu",
         "replaces": "src/repro/kernels/moe_gemm/kernel.py:61",
         "launches": moe["launches"], "max_abs_err": row["max_abs_err"],
+        "spec_launches": spec["launches"]["moe_ffn"],
+        "spec_serve_launches": sserve["launches"]["moe_ffn"],
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} bf16 weights (engine wave)",
@@ -1763,6 +1968,13 @@ def main():
         "bound_by": frow["bound_by"], "library_ms": frow["library_ms"],
         "shape": f"B=4 W=144 K={N_KV} G={GROUP} Hd={HEAD_DIM} bf16 (serve phase's composed "
                  "step)",
+        "spec_launches": spec["launches"]["flash_decode"],
+        "spec_serve_launches": sserve["launches"]["flash_decode"],
+        "verify_ms": vrow["ms"], "verify_plain_ms": vrow["plain_ms"],
+        "verify_library_ms": vrow["library_ms"], "verify_bound_ms": vrow["bound_ms"],
+        "verify_bound_by": vrow["bound_by"], "verify_max_abs_err": vrow["max_abs_err"],
+        "verify_shape": f"B*S=4 W={SPEC_PROMPT + SPEC_TOKENS} K={N_KV} G={GROUP} "
+                        f"Hd={HEAD_DIM} bf16 (spec phase's verify wave, k=4)",
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -3,19 +3,20 @@ on-demand expert loading engine (single stream and the request-level API
 the serving loop composes), worker-group scheduling, the expert store
 and worker slots (full-width or packed-resident), prefill assignment and
 the decode and serving timing model, and async expert prefetch with
-opportunistic residency."""
+opportunistic residency, and shadow-drafted speculative decoding."""
 from .align import AlignmentPolicy, kv_bytes_per_token, token_bytes
 from .engine import (LayerRecord, ODMoEEngine, TokenRecord, Trace, concat_cache_lists,
-                     slice_cache_list, wave_preds)
+                     slice_cache_list)
 from .predictor import (FrequencyPredictor, GateExtrapolator, RandomPredictor,
                         SEPShadow, concat_shadow_states, layers_within_horizon,
-                        moe_layer_indices, recall_counts, slice_shadow_state,
-                        topk_to_layer_dict)
+                        moe_layer_indices, recall_counts, slice_rollout,
+                        slice_shadow_state, topk_to_layer_dict)
 from .prefetch import (ChaosExecutor, GateStatsResidency, LRUResidency, PrefetchExecutor,
                        ResidencyPolicy, SyncExecutor, ThreadedExecutor, make_executor,
                        resolve_residency)
 from .prefill import experts_activated, prefill_expert_assignment, split_minibatches
 from .schedule import GroupSchedule
+from .specdecode import accept_prefix, select_commit, spec_attn_decode, wave_preds
 from .store import DeviceShard, ExpertStore, FetchedShard, LoadEvent, WorkerSlots
 from .timing import (RTX3090_EDGE, DecodeClock, HardwareProfile, ODMoETimings,
                      ServingTimings, degraded_tpot_report, embedding_payload, latency_percentiles,
@@ -27,10 +28,11 @@ __all__ = [
     "ODMoEEngine", "TokenRecord", "Trace", "concat_cache_lists", "slice_cache_list",
     "wave_preds", "FrequencyPredictor", "GateExtrapolator", "RandomPredictor", "SEPShadow",
     "concat_shadow_states", "layers_within_horizon", "moe_layer_indices", "recall_counts",
-    "slice_shadow_state", "topk_to_layer_dict", "ChaosExecutor", "GateStatsResidency",
+    "slice_rollout", "slice_shadow_state", "topk_to_layer_dict", "ChaosExecutor", "GateStatsResidency",
     "LRUResidency", "PrefetchExecutor", "ResidencyPolicy", "SyncExecutor", "ThreadedExecutor",
     "make_executor", "resolve_residency", "experts_activated", "prefill_expert_assignment",
-    "split_minibatches", "GroupSchedule", "DeviceShard", "ExpertStore", "FetchedShard", "LoadEvent",
+    "split_minibatches", "GroupSchedule", "accept_prefix", "select_commit",
+    "spec_attn_decode", "DeviceShard", "ExpertStore", "FetchedShard", "LoadEvent",
     "WorkerSlots", "RTX3090_EDGE", "DecodeClock", "HardwareProfile", "ODMoETimings",
     "ServingTimings", "degraded_tpot_report", "embedding_payload", "latency_percentiles",
     "layer_bytes", "node_memory_report", "poisson_arrivals", "simulate_cached",

@@ -34,15 +34,22 @@ the same expert re-hits (``repro_torch.core.prefetch``).  Neither
 changes a token; prefetch changes no record either, residency only
 removes loads.
 
+``speculate=k`` decodes in draft-verify-accept waves
+(``repro_torch.core.specdecode``): the SEP shadow drafts ``k`` tokens,
+one ``decode_batch_spec`` wave verifies them as B*k ordinary decode
+rows, and the longest agreeing prefix is committed.  Same tokens, fewer
+steps.
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md
-queue 1): speculative decoding (``decode_batch_spec`` runs one-token
-waves only), fleet profiles and faults, compute-vs-ship, and the
-per-pair ``loop`` wave oracle.
+queue 1, "fleet/, then serve/cluster.py" and "the wave_compute='loop'
+oracle"): fleet profiles and faults, compute-vs-ship, and the per-pair
+``loop`` wave oracle.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,21 +59,20 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.moe_gemm import (combine_topk, grouped_topk_contrib,
                                           grouped_topk_contrib_packed)
 from repro_torch.models.api import prefill
-from repro_torch.models.blocks import block_decode
-from repro_torch.models.config import ATTN, MOE_FF, NO_FF, ModelConfig
-from repro_torch.models.layers import apply_norm, embed
-from repro_torch.models.moe import route
+from repro_torch.models.blocks import block_decode, block_decode_router
+from repro_torch.models.config import ATTN, MOE_FF, ModelConfig
+from repro_torch.models.layers import embed
 from repro_torch.models.transformer import (decode_logits, layer_params, tree_concat,
                                             tree_leaves, tree_map, tree_stack)
 from repro_torch.quant.quantize import shadow_nbytes
 from repro_torch.quant.transport import resolve_policy, transport_params
-from repro_torch.rows import row_blocks
 
 from .align import AlignmentPolicy
 from .prefetch import PrefetchExecutor, make_executor, resolve_residency
 from .predictor import (FrequencyPredictor, GateExtrapolator, RandomPredictor,
-                        SEPShadow, moe_layer_indices, recall_counts)
+                        SEPShadow, moe_layer_indices, recall_counts, slice_rollout)
 from .schedule import GroupSchedule
+from .specdecode import accept_prefix, select_commit, spec_attn_decode, wave_preds
 from .store import ExpertStore, WorkerSlots
 
 
@@ -135,17 +141,6 @@ class Trace:
         return reloads / loads if loads else 0.0
 
 
-def wave_preds(preds_steps: List[Dict[int, np.ndarray]]) -> Dict[int, np.ndarray]:
-    """Fold per-step predictions into wave-row order: {layer -> (B*S, k)}
-    with row ``b*S + s`` = request ``b``, wave position ``s``
-    (``repro.core.specdecode.wave_preds``)."""
-    out: Dict[int, np.ndarray] = {}
-    for li in preds_steps[0]:
-        stacked = np.stack([np.asarray(p[li]) for p in preds_steps], axis=1)   # (B, S, k)
-        out[li] = stacked.reshape(-1, stacked.shape[-1])
-    return out
-
-
 # ------------------------------------------------------- batch membership
 def concat_cache_lists(cache_lists: Sequence):
     """Join per-request per-layer caches along the batch axis.
@@ -183,7 +178,7 @@ def slice_cache_list(cache_list, i: int):
 
 def _not_ported(feature: str, item: str):
     raise NotImplementedError(f"{feature} is not ported yet (ROADMAP.md "
-                              f"queue 1, {item})")
+                              f"queue 1: {item})")
 
 
 class ODMoEEngine:
@@ -196,24 +191,36 @@ class ODMoEEngine:
                  compute_vs_ship=None, wave_compute: str = "grouped"):
         if cfg.is_encoder_decoder:
             raise ValueError("engine drives decoder-only models")
+        if wave_compute not in ("grouped", "loop"):
+            raise ValueError("wave_compute must be 'grouped' or 'loop'")
         if speculate < 1:
             raise ValueError("speculate must be >= 1")
+        if speculate > 1:
+            # the SEP shadow is the draft model, the verify wave folds S
+            # positions into the batch axis of the grouped path, and the
+            # wave's slots must be distinct within the cache window
+            if predictor != "sep":
+                raise ValueError("speculate > 1 requires the SEP shadow (it is the "
+                                 "draft model)")
+            if wave_compute != "grouped":
+                raise ValueError("speculate > 1 requires the grouped wave path")
+            if any(mixer != ATTN for mixer, _ in cfg.layer_kinds()):
+                raise ValueError("speculate > 1 requires all-attention mixers (SSM "
+                                 "states cannot fork per wave row)")
+            if cfg.sliding_window and cfg.sliding_window < speculate:
+                raise ValueError("speculate must fit the sliding window")
+        self.speculate = speculate
         if (prefetch is not None or residency is not None) and wave_compute != "grouped":
             raise ValueError("prefetch/residency require the grouped wave path")
         if packed_slots and wave_compute != "grouped":
             # the loop oracle reads full-width slot dicts
             raise ValueError("packed_slots requires the grouped wave path")
-        if speculate > 1:
-            if any(mixer != ATTN for mixer, _ in cfg.layer_kinds()):
-                raise ValueError("speculate > 1 requires all-attention mixers (SSM "
-                                 "states cannot fork per wave row)")
-            _not_ported("speculate > 1", "core/specdecode.py")
         if profiles is not None or faults is not None:
-            _not_ported("fleet profiles / faults", "fleet/")
+            _not_ported("fleet profiles / faults", "fleet/, then serve/cluster.py")
         if compute_vs_ship is not None:
-            _not_ported("compute_vs_ship", "fleet/ and serve/")
+            _not_ported("compute_vs_ship", "fleet/, then serve/cluster.py")
         if wave_compute != "grouped":
-            _not_ported(f"wave_compute={wave_compute!r}", "core/engine.py loop oracle")
+            _not_ported(f"wave_compute={wave_compute!r}", "the wave_compute='loop' oracle")
         self.predictor_kind = predictor
         self.device = resolve_device(device)
         if params["embed"]["table"].device != self.device:
@@ -313,12 +320,16 @@ class ODMoEEngine:
     @torch.no_grad()
     def generate(self, batch, num_tokens: int,
                  policy: AlignmentPolicy = AlignmentPolicy(1, 1)):
-        """End-to-end greedy generation, one token per step.
+        """End-to-end greedy generation: one token per step, or with
+        ``speculate=k`` draft-verify-accept waves (same tokens, fewer
+        steps).
 
         The KV cache is sized like ``greedy_generate``'s (prompt +
         tokens), so engine and reference attend over identical shapes and
         no reduction can change order between them."""
         batch = {"tokens": batch["tokens"].to(self.device)}
+        if self.speculate > 1:
+            return self._generate_spec(batch, num_tokens, policy)
         max_cache_len = batch["tokens"].shape[1] + num_tokens
         main_token, cache_list, pos = self.prefill_request(batch, max_cache_len)
         if self.shadow is not None:
@@ -345,6 +356,48 @@ class ODMoEEngine:
             trace.records.append(rec)
         return torch.stack(tokens_out, dim=1), trace
 
+    def _generate_spec(self, batch, num_tokens: int, policy: AlignmentPolicy):
+        """Speculative generation: the shadow drafts ``speculate`` tokens a
+        wave and one verify wave commits the accepted prefix.  The batch
+        commits in lockstep (the least accepted prefix of its rows), so
+        ``pos`` stays uniform as in :meth:`generate`.  The alignment policy
+        sees each wave's first token index as its step.  A wave writes at
+        most position ``prompt + num_tokens - 2`` (its width is cut to the
+        tokens left), so the cache is ``greedy_generate``'s width and never
+        wraps."""
+        max_cache_len = batch["tokens"].shape[1] + num_tokens
+        main_token, cache_list, pos = self.prefill_request(batch, max_cache_len)
+        self.shadow.reset(batch, max_cache_len)
+        tokens_out = [main_token]
+        trace = Trace()
+        n = 1
+        while n < num_tokens:
+            t0 = time.perf_counter()
+            s_w = min(self.speculate, num_tokens - n)
+            at, ak = policy.align_token_at(n), policy.align_kv_at(n)
+            if ak:
+                self.shadow.align_kv({"caches": self._stack(cache_list), "pos": pos})
+            first = main_token if at else self.shadow.token
+            st0 = dict(self.shadow.state, token=self.shadow.token)
+            drafts, preds_steps, roll = self.shadow.rollout_states(st0, first, s_w)
+            wave_in = torch.cat([main_token[:, None], drafts], dim=1)
+            rec = TokenRecord(index=n, aligned_token=at, aligned_kv=ak, spec_len=s_w)
+            verified, c, cache_list, pos = self.decode_batch_spec(
+                wave_in, cache_list, pos, wave_preds(preds_steps), n, rec, lockstep=True)
+            ci = rec.committed // verified.shape[0]     # lockstep: the same for every row
+            tokens_out.extend(verified[:, s] for s in range(ci))
+            main_token = verified[:, ci - 1]
+            # roll the shadow back to the accepted prefix: step ci-1 consumed
+            # exactly [first, true tokens 0..ci-2], no rejected draft
+            st = slice_rollout(roll, ci - 1)
+            self.shadow.token = st["token"]
+            self.shadow.state = {"caches": st["caches"], "pos": st["pos"]}
+            self._sync()
+            rec.seconds = time.perf_counter() - t0
+            trace.records.append(rec)
+            n += ci
+        return torch.stack(tokens_out, dim=1), trace
+
     # ---------------------------------------------------------- one token
     @torch.no_grad()
     def decode_batch(self, token, cache_list, pos, preds, step_idx,
@@ -355,6 +408,19 @@ class ODMoEEngine:
         slots in ``_serve_and_compute``."""
         cfg = self.cfg
         x = embed(token[:, None], self.params["embed"])
+        x = self._decode_layers(x, cache_list, cache_list, pos, preds, step_idx, rec)
+        logits = decode_logits(cfg, self.params, x)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache_list, pos + 1
+
+    def _decode_layers(self, x, cache_list, out, pos, preds, step_idx, rec: TokenRecord,
+                       wave: int = 0):
+        """The layers of a decode step over the rows ``x``, reading each
+        layer's cache from ``cache_list`` and storing the new one in
+        ``out[li]``.  ``wave=S`` runs a verify wave: the same blocks with
+        ``specdecode.spec_attn_decode`` as their attention, whose B*S rows
+        are a batch like any other to the expert machinery."""
+        cfg = self.cfg
+        attn = partial(spec_attn_decode, S=wave) if wave else None
         pending: Dict[int, np.ndarray] = dict(preds)
         # SEP predictions cover the whole token: queue their fetches now, so
         # the transfers overlap everything before each layer's waves
@@ -364,38 +430,68 @@ class ODMoEEngine:
         for li, kinds in enumerate(cfg.layer_kinds()):
             lp = self._layer_params[li]
             if kinds[1] != MOE_FF:
-                x, cache_list[li], _ = block_decode(cfg, lp, kinds, x,
-                                                    cache_list[li], pos)
+                x, out[li] = block_decode(cfg, lp, kinds, x, cache_list[li], pos, attn=attn)[:2]
                 continue
             moe_i += 1
-            x, cache_list[li], _ = block_decode(cfg, lp, (kinds[0], NO_FF), x,
-                                                cache_list[li], pos)
-            # the router input in fixed row blocks, as block_decode computes it
-            h = row_blocks(lambda t: apply_norm(cfg, t, lp["norm2"]), x)[:, 0]
-            topk_idx, topk_gate = route(cfg, lp["ff"], h)
+            x, out[li], h, topk_idx, topk_gate = block_decode_router(
+                cfg, lp, kinds, x, cache_list[li], pos, attn=attn)
             x = self._moe_bookkeeping(step_idx, li, moe_i, pending,
                                       topk_idx.cpu().numpy(), h, topk_gate, x, rec)
         if self.prefetch is not None:
             self.prefetch.finish_token(step_idx)
-        logits = decode_logits(cfg, self.params, x)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache_list, pos + 1
+        return x
 
     @torch.no_grad()
     def decode_batch_spec(self, tokens, cache_list, pos, preds, step_idx,
-                          rec: TokenRecord):
-        """A draft-verify-accept wave for the (possibly composed) batch,
-        ``tokens`` (B, S).  Only S = 1 is ported: it is the one-token step,
-        and returns ``(tokens (B, 1), commits (B,) of ones, cache_list,
-        pos + 1)`` with ``rec.spec_len, rec.committed = 1, B``.  S > 1
-        raises (ROADMAP.md queue 1, item 3)."""
+                          rec: TokenRecord, *, max_commit=None, lockstep: bool = False):
+        """One draft-verify-accept wave for the (possibly composed) batch
+        (``repro_torch.core.specdecode``).
+
+        ``tokens`` (B, S): column 0 each request's true last token, columns
+        1.. the shadow's drafts; ``preds``: {layer -> (B*S, k)} in wave-row
+        order (row ``b*S + s`` = request ``b``, position ``s``).  The B*S
+        rows go through ``_moe_bookkeeping`` unchanged, so loads, prefetch,
+        residency and packed slots behave as for a composed batch of that
+        size.  A paged batch view gathers each layer dense, the wave
+        replicates and selects it, and the assignment scatters the
+        committed rows back through the page tables.
+
+        Returns ``(verified (B, S), c (B,), cache_list, pos + c)``: request
+        ``b`` committed ``verified[b, :c_b]``.  ``max_commit`` (B,) caps the
+        commits (serving budgets); ``lockstep=True`` commits the batch
+        minimum everywhere (fixed-batch generate).  ``rec.spec_len`` is
+        S and ``rec.committed`` the sum of ``c``; ``S == 1`` is the
+        one-token step, with ``rec.spec_len, rec.committed = 1, B``."""
+        cfg = self.cfg
         b, s_w = tokens.shape
-        if s_w != 1:
-            _not_ported("speculative verify waves (S > 1)", "core/specdecode.py")
-        tok, cache_list, pos = self.decode_batch(tokens[:, 0], cache_list, pos, preds,
-                                                 step_idx, rec)
-        rec.spec_len, rec.committed = 1, b
-        return (tok[:, None], torch.ones((b,), dtype=torch.int32, device=tok.device),
-                cache_list, pos)
+        if s_w == 1:
+            tok, cache_list, pos = self.decode_batch(tokens[:, 0], cache_list, pos, preds,
+                                                     step_idx, rec)
+            rec.spec_len, rec.committed = 1, b
+            return (tok[:, None], torch.ones((b,), dtype=torch.int32, device=tok.device),
+                    cache_list, pos)
+        x = embed(tokens.reshape(-1, 1), self.params["embed"])
+        pos_rows = (pos[:, None] + torch.arange(s_w, dtype=pos.dtype,
+                                                device=pos.device)).reshape(-1)
+        # each wave row verifies against its own copy of its request's cache;
+        # nothing is written back before the commit selects a row
+        spec_caches: Dict[int, dict] = {}
+        x = self._decode_layers(x, cache_list, spec_caches, pos_rows, preds, step_idx, rec,
+                                wave=s_w)
+        verified = torch.argmax(decode_logits(cfg, self.params, x), dim=-1).to(
+            torch.int32).reshape(b, s_w)
+        # the commit counts drive host control flow: one copy to the host
+        both = torch.cat([tokens.to(torch.int32), verified], dim=1).cpu()
+        c = accept_prefix(both[:, :s_w], both[:, s_w:])
+        if max_commit is not None:
+            c = torch.minimum(c, torch.as_tensor(max_commit, dtype=torch.int32))
+        if lockstep:
+            c = torch.full_like(c, int(c.min()))
+        rec.spec_len, rec.committed = s_w, int(c.sum())
+        c = c.to(pos.device)
+        for li in range(cfg.num_layers):
+            cache_list[li] = select_commit(spec_caches[li], c, s_w)
+        return verified, c, cache_list, pos + c
 
     def _resident_skip(self):
         """Prefetch skip predicate under residency: an expert still resident

@@ -95,6 +95,26 @@ class SEPShadow:
                    token=torch.argmax(logits, dim=-1).to(torch.int32))
         return topk_to_layer_dict(self.cfg, aux["topk"]), new
 
+    @torch.no_grad()
+    def rollout_states(self, state: dict, token, S: int):
+        """``S`` chained :meth:`step_state` calls: consume ``token``, then
+        the shadow's own greedy continuations.  Returns ``(drafts (B,
+        S-1), preds_steps, states)``, ``states[s]`` being the state after
+        ``s + 1`` tokens (:func:`slice_rollout`).  Each state's tensors
+        are its step's own, so a state kept after rollback holds none of
+        the others."""
+        preds_steps, states = [], []
+        st, tok = state, token
+        for _ in range(S):
+            preds, st = self.step_state(st, tok)
+            preds_steps.append(preds)
+            states.append(st)
+            tok = st["token"]
+        drafts = (torch.stack([s["token"] for s in states[:-1]], dim=1) if S > 1
+                  else torch.zeros((token.shape[0], 0), dtype=torch.int32,
+                                   device=token.device))
+        return drafts, preds_steps, states
+
     @staticmethod
     def align_kv_state(state: dict, main_state: dict) -> dict:
         """``state`` with caches/pos taken from the main model (§3.2 KV
@@ -120,6 +140,15 @@ class SEPShadow:
 
     def align_kv(self, main_state):
         self.state = self.align_kv_state(self.state, main_state)
+
+
+def slice_rollout(stacked, s: int) -> dict:
+    """Per-step state ``s`` of a :meth:`SEPShadow.rollout_states` rollout:
+    the state after consuming ``s + 1`` tokens, as chained ``step_state``
+    calls return it (the rollback target after committing ``c`` is
+    ``slice_rollout(stacked, c - 1)``)."""
+    st = stacked[s]
+    return {"caches": st["caches"], "pos": st["pos"], "token": st["token"]}
 
 
 def concat_shadow_states(states) -> dict:

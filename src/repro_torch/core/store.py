@@ -26,7 +26,7 @@ residency policy naming the victim among released residents.  Its
 counters live in ``residency_stats``, beside ``stats``.  A load may
 commit a payload fetched earlier (``FetchedShard``) instead of fetching
 inline.  Multi-slot profiles and worker failure wait (ROADMAP.md
-queue 1, item 4).
+queue 1, "fleet/, then serve/cluster.py").
 """
 from __future__ import annotations
 

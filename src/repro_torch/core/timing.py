@@ -13,7 +13,9 @@ event by event from an engine ``Trace``, following Figs. 2/4/5.  The
 fully-cached baseline and the prefill models price the same config.
 The serving loop drives the same clock step by step, charging prefills
 and KV swaps between decode steps; ``ServingTimings`` turns the
-per-request timestamps into TTFT/TPOT/throughput.  ``RTX3090_EDGE`` is
+per-request timestamps into TTFT/TPOT/throughput.  A speculative verify
+wave is priced by its width (wider activation hops, and the shadow's
+extra draft passes before its predictions).  ``RTX3090_EDGE`` is
 the paper's edge testbed.  Counterpart: ``repro.core.timing``; the
 offload-cache baselines and the fleet and fault state wait (ROADMAP.md
 queue 1).
@@ -209,6 +211,11 @@ class DecodeClock:
         profile, sched = self.profile, self.sched
         iter_start = t = self.now
         stall = 0.0
+        # a speculative verify wave of ``spec_len`` positions rides one
+        # iteration: weight streaming is row-invariant, so its marginal cost
+        # is the wider activation payload on every hop
+        spec = rec.spec_len
+        emb_extra = (spec - 1) * self.emb / profile.lan_bps
         # shadow late departure (Fig. 5): the alignment payload must land
         delay = 0.0
         if self.predictor == "sep":
@@ -217,11 +224,16 @@ class DecodeClock:
             if rec.aligned_token:
                 delay += profile.t_lan(4)
         shadow_start = iter_start + delay
+        # the shadow drafts the wave by rolling itself forward: the last
+        # position's predictions, which the wave's loads wait for, come
+        # ``spec - 1`` whole shadow passes later
+        draft_delay = ((spec - 1) * len(self.kinds) * self.t_shadow_layer
+                       if self.predictor == "sep" else 0.0)
 
         def pred_avail(layer_idx: int, main_now: float) -> float:
             if self.predictor == "sep":
                 # the shadow must itself pass layer ``layer_idx``, then notify
-                return (shadow_start + (layer_idx + 1) * self.t_shadow_layer
+                return (shadow_start + draft_delay + (layer_idx + 1) * self.t_shadow_layer
                         + profile.lan_latency_ms * 1e-3)
             # gate extrapolation: the prediction emerges from the main
             # model's own previous layer, i.e. now
@@ -231,7 +243,8 @@ class DecodeClock:
         layer_rec = {lr.layer: lr for lr in rec.layers}
         moe_i = -1
         for li, (mixer, ff) in enumerate(self.kinds):
-            t += self.t_main_attn if mixer == ATTN else self.t_main_mamba
+            # t_main_attn holds two one-token activation hops; a wave widens both
+            t += (self.t_main_attn + 2 * emb_extra) if mixer == ATTN else self.t_main_mamba
             if ff == DENSE_FF:
                 t += self.t_main_dense_ff
                 continue
@@ -289,10 +302,10 @@ class DecodeClock:
                     ls = max(t, worker_free[w])
                     worker_free[w] = ls + profile.t_load(self._bytes_for(li, e))
                     load_done = max(load_done, worker_free[w])
-            ready = t + profile.t_lan(self.emb)   # the embedding reaches the workers
+            ready = t + profile.t_lan(spec * self.emb)   # the wave's embeddings, one message
             ec_start = max(ready, load_done)
             stall += max(0.0, ec_start - ready)
-            t = ec_start + self.t_worker
+            t = ec_start + self.t_worker + emb_extra
             for w in workers:
                 worker_free[w] = max(worker_free[w], t)
         t += self.t_head

@@ -24,8 +24,10 @@ the timing model gives for the paper's testbed (a model, never a
 measurement).  ``--packed-slots`` keeps wire-format experts in the
 worker slots and computes them with the in-register-dequant kernel;
 ``--token-period`` / ``--kv-period`` set how often the SEP shadow aligns
-its token and KV with the main model.  Cluster mode (``--replicas > 1``) waits for ``fleet/`` (ROADMAP.md
-queue 1, item 4).
+its token and KV with the main model; ``--speculate k`` decodes in
+shadow-drafted waves of k positions and prints the acceptance.  Cluster
+mode (``--replicas > 1``) waits for ``fleet/`` (ROADMAP.md queue 1,
+"fleet/, then serve/cluster.py").
 """
 from __future__ import annotations
 
@@ -83,6 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="copy the main model's KV into the shadow every N steps "
                          "(0 = never)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--speculate", type=int, default=1,
+                    help="shadow-drafted speculative decoding: verify k draft positions "
+                         "per wave (1 = off; needs --predictor sep)")
     ap.add_argument("--transport-precision", default="fp32",
                     choices=["fp32", "fp16", "int8", "nf4", "tiered"],
                     help="on-demand expert wire precision; 'tiered' calibrates a "
@@ -192,7 +197,7 @@ def serve_single(cfg, params, args) -> dict:
     eng = ODMoEEngine(cfg, params, n_workers=args.workers,
                       predictor=args.predictor, shadow_scheme=args.shadow,
                       seed=args.seed, transport=transport, device=device,
-                      packed_slots=args.packed_slots)
+                      packed_slots=args.packed_slots, speculate=args.speculate)
     _sync(device)
     t0 = time.perf_counter()
     toks, trace = eng.generate(batch, args.tokens,
@@ -210,6 +215,11 @@ def serve_single(cfg, params, args) -> dict:
     rec = trace.recall()
     print(f"  recall (Eq.3): {'n/a (no predictions)' if rec is None else f'{rec:.4f}'}"
           f"   reload fraction: {trace.reload_fraction():.4f}")
+    if args.speculate > 1:
+        drafted = sum(r.spec_len for r in trace.records)
+        committed = sum(r.committed for r in trace.records)
+        print(f"  speculation k={args.speculate}: acceptance "
+              f"{committed / max(drafted, 1):.3f} over {len(trace.records)} waves")
     print(f"  loads: {eng.slots.stats}")
     print(f"  bytes moved [{eng.transport.describe()}]: {eng.slots.bytes_moved} "
           f"({eng.slots.bytes_moved / 1e9:.3f} GB over "
@@ -219,7 +229,14 @@ def serve_single(cfg, params, args) -> dict:
     print("  memory: " + ", ".join(f"{k}={v / 1e6:.2f}MB" for k, v in mem.items()
                                    if k.endswith("bytes")))
     steps = [r.seconds for r in trace.records]
-    if steps:
+    if steps and args.speculate > 1:
+        committed = sum(r.committed for r in trace.records) // toks.shape[0]
+        print(f"  measured wall time per verify wave on {device}: mean "
+              f"{statistics.mean(steps) * 1e3:.3f} ms, median "
+              f"{statistics.median(steps) * 1e3:.3f} ms over {len(steps)} waves; "
+              f"{sum(steps) / committed * 1e3:.3f} ms per committed token over {committed} "
+              f"(generate total {t_engine:.3f} s, prefill included)")
+    elif steps:
         print(f"  measured wall time per decoded token on {device}: "
               f"mean {statistics.mean(steps) * 1e3:.3f} ms, median "
               f"{statistics.median(steps) * 1e3:.3f} ms over {len(steps)} tokens "
@@ -291,13 +308,15 @@ def serve_traffic(cfg, params, args, **engine_options) -> dict:
     both are None on the host."""
     if args.replicas > 1:
         raise NotImplementedError("cluster serving (--replicas > 1) is not ported yet: "
-                                  "it waits for fleet/ (ROADMAP.md queue 1, item 4)")
+                                  "it waits for fleet/ (ROADMAP.md queue 1, \"fleet/, "
+                                  "then serve/cluster.py\")")
     device = params["embed"]["table"].device
     transport = build_transport(cfg, params, args)
     launches0 = _launches()
     eng = ODMoEEngine(cfg, params, n_workers=args.workers, predictor=args.predictor,
                       shadow_scheme=args.shadow, seed=args.seed, transport=transport,
-                      device=device, packed_slots=args.packed_slots, **engine_options)
+                      device=device, packed_slots=args.packed_slots, speculate=args.speculate,
+                      **engine_options)
     reqs = build_requests(cfg, args)
     kv_pool = (KVPool(cfg, num_pages=args.kv_pages, page_tokens=args.page_tokens,
                       device=device) if args.kv_pages else None)
@@ -339,6 +358,10 @@ def serve_traffic(cfg, params, args, **engine_options) -> dict:
                   f"{tr['ttft_p99_s'] * 1e3:.2f} ms  TPOT p95 {tr['tpot_p95_s'] * 1e3:.2f} ms  "
                   f"SLO ttft {tr['ttft_slo_attainment']:.2f} tpot "
                   f"{tr['tpot_slo_attainment']:.2f}  [{MODELLED}]")
+    if res.spec_stats is not None:
+        ss = res.spec_stats
+        print(f"  speculation k={ss['speculate']}: acceptance {ss['acceptance']:.3f} over "
+              f"{len(ss['per_request'])} requests")
     ev = eng.slots.events
     served = [len(e.requests) for e in ev if e.requests]
     if served:
@@ -401,7 +424,8 @@ def main(argv=None):
           f"{args.workers} workers, predictor={args.predictor}"
           + (f"/{args.shadow}" if args.predictor == "sep" else "")
           + f", transport={args.transport_precision}"
-          + (", packed slots" if args.packed_slots else "") + f" — {mode}")
+          + (", packed slots" if args.packed_slots else "")
+          + (f", speculate {args.speculate}" if args.speculate > 1 else "") + f" — {mode}")
     if args.requests:
         serve_traffic(cfg, params, args)
     else:

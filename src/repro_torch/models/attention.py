@@ -155,11 +155,36 @@ def seed_cache(cfg: ModelConfig, params, x, positions, max_len: int) -> dict:
 
 
 # ------------------------------------------------------------------- decode
+def decode_qkv(cfg: ModelConfig, params, x, pos):
+    """The projections of a decode step: q, k, v of the rows ``x``
+    (R,1,d) at positions ``pos`` (R,), RoPE applied, in fixed row blocks
+    (``rows.row_blocks``), so a row's bits do not depend on R."""
+    def qkv(h, p):
+        q, k, v = _project_qkv(cfg, params, h)
+        return (apply_rope(q, p[:, None], cfg.rope_theta, cfg.rope_fraction),
+                apply_rope(k, p[:, None], cfg.rope_theta, cfg.rope_fraction), v)
+
+    return row_blocks(qkv, x, pos)
+
+
+def decode_attend(cfg: ModelConfig, params, q, cache, pos, dtype):
+    """The core and output projection of a decode step: each row's query
+    against its own cache row through ``flash_decode``, rounded once to
+    ``dtype``, then ``wo`` in fixed row blocks."""
+    w = cache["k"].shape[1]
+    b, _, h, hd = q.shape
+    qg = q[:, 0].reshape(b, cfg.num_kv_heads, h // cfg.num_kv_heads, hd).contiguous()
+    o = flash_decode(qg, cache["k"], cache["v"], cache["pos"], pos.to(torch.int32),
+                     window=w if cfg.sliding_window else 0,
+                     soft_cap=cfg.logit_soft_cap or 0.0)
+    return row_blocks(lambda t: t @ params["wo"], o.to(dtype).reshape(b, 1, h * hd))
+
+
 def attn_decode(cfg: ModelConfig, params, x, cache, pos) -> Tuple[torch.Tensor, dict]:
     """One-token decode.  x: (B,1,d); pos: (B,) absolute position.
     Writes slot ``pos % W`` of a copy of the cache and returns it.  The
-    projections run in fixed row blocks (``rows.row_blocks``), so a
-    row's bits do not depend on B.
+    projections run in fixed row blocks (``decode_qkv``), so a row's bits
+    do not depend on B.
 
     The score/mask/softmax/PV core is ``kernels.flash_decode.flash_decode``
     on both devices (the hand-written kernel on the card, its plain
@@ -168,13 +193,9 @@ def attn_decode(cfg: ModelConfig, params, x, cache, pos) -> Tuple[torch.Tensor, 
     model dtype, before ``wo``; the reference rounds its scale and its
     probabilities to the model dtype first, so the two agree exactly in
     semantics only at fp32.  The card has no soft cap: a config with
-    ``logit_soft_cap`` raises there."""
-    def qkv(h, p):
-        q, k, v = _project_qkv(cfg, params, h)
-        return (apply_rope(q, p[:, None], cfg.rope_theta, cfg.rope_fraction),
-                apply_rope(k, p[:, None], cfg.rope_theta, cfg.rope_fraction), v)
-
-    q, k, v = row_blocks(qkv, x, pos)
+    ``logit_soft_cap`` raises there.  A speculative verify wave
+    (``core.specdecode.spec_attn_decode``) runs the same two steps."""
+    q, k, v = decode_qkv(cfg, params, x, pos)
     w = cache["k"].shape[1]
     slot = pos.long() % w
     b_idx = torch.arange(x.shape[0], device=x.device)
@@ -182,9 +203,4 @@ def attn_decode(cfg: ModelConfig, params, x, cache, pos) -> Tuple[torch.Tensor, 
     cache["k"][b_idx, slot] = k[:, 0]
     cache["v"][b_idx, slot] = v[:, 0]
     cache["pos"][b_idx, slot] = pos.to(torch.int32)
-    b, _, h, hd = q.shape
-    qg = q[:, 0].reshape(b, cfg.num_kv_heads, h // cfg.num_kv_heads, hd).contiguous()
-    o = flash_decode(qg, cache["k"], cache["v"], cache["pos"], pos.to(torch.int32),
-                     window=w if cfg.sliding_window else 0,
-                     soft_cap=cfg.logit_soft_cap or 0.0)
-    return row_blocks(lambda t: t @ params["wo"], o.to(x.dtype).reshape(b, 1, h * hd)), cache
+    return decode_attend(cfg, params, q, cache, pos, x.dtype), cache

@@ -17,7 +17,7 @@ from . import attention as attn_lib
 from . import mamba as mamba_lib
 from .config import ATTN, DENSE_FF, MOE_FF, NO_FF, ModelConfig
 from .layers import apply_norm, dense_init, swiglu_mlp
-from .moe import init_moe, moe_grouped
+from .moe import init_moe, moe_grouped, route
 
 
 # --------------------------------------------------------------------- init
@@ -77,17 +77,19 @@ def block_seq(cfg: ModelConfig, params, kinds, x, positions, *,
     return x, cache
 
 
-def block_decode(cfg: ModelConfig, params, kinds, x, cache, pos
+def block_decode(cfg: ModelConfig, params, kinds, x, cache, pos, attn=None
                  ) -> Tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
     """One-token block.  x: (B,1,d).  Returns (x, new_cache, topk_idx).
 
     The norms, projections, router and dense FF run in fixed row blocks
     (``rows.row_blocks``); the experts run on the real rows only, through
     the grouped FFN, whose per-row bits do not depend on the row count.
-    A Mamba mixer ignores ``pos``."""
+    A Mamba mixer ignores ``pos``.  ``attn`` replaces ``attn_decode`` for
+    an attention mixer with the same signature (a speculative verify
+    wave's ``spec_attn_decode``); the rest of the block is unchanged."""
     h = row_blocks(lambda t: apply_norm(cfg, t, params["norm1"]), x)
     if kinds[0] == ATTN:
-        out, cache = attn_lib.attn_decode(cfg, params["mixer"], h, cache, pos)
+        out, cache = (attn or attn_lib.attn_decode)(cfg, params["mixer"], h, cache, pos)
     else:
         out, cache = mamba_lib.mamba_decode(cfg, params["mixer"], h, cache)
     x = x + out
@@ -99,3 +101,15 @@ def block_decode(cfg: ModelConfig, params, kinds, x, cache, pos
         y, topk_idx = moe_grouped(cfg, params["ff"], h.reshape(b * t, d))
         return x + y.reshape(b, t, d), cache, topk_idx.reshape(b, t, cfg.top_k)
     return x + row_blocks(lambda t: swiglu_mlp(t, params["ff"]), h), cache, None
+
+
+def block_decode_router(cfg: ModelConfig, params, kinds, x, cache, pos, attn=None):
+    """A MoE block's decode step up to its experts: the mixer and its
+    residual (``block_decode`` without the FFN), the router input in the
+    fixed row blocks ``block_decode`` computes it in, and the top-k
+    routing.  Returns ``(x, new_cache, h (B,d), topk_idx, topk_gate)``;
+    the engine runs the experts from its worker slots."""
+    x, cache, _ = block_decode(cfg, params, (kinds[0], NO_FF), x, cache, pos, attn=attn)
+    h = row_blocks(lambda t: apply_norm(cfg, t, params["norm2"]), x)[:, 0]
+    topk_idx, topk_gate = route(cfg, params["ff"], h)
+    return x, cache, h, topk_idx, topk_gate

@@ -11,11 +11,16 @@ prefill runs once, at the last chunk; (2) refresh the runnable requests'
 SEP peeks: every request lacking one is aligned on its own, the shadows
 are composed and stepped as one batched decode (``_ensure_peeks``), and
 each request keeps its prediction without committing its shadow, so a
-request that waits never drifts; (3) let the ``BatchComposer`` pick up to
-``max_batch`` requests; (4) run one composed ``decode_batch_spec`` (S = 1)
-through the engine, with load events tagged by the batch's request ids,
+request that waits never drifts (with ``engine.speculate=S`` the composed
+shadow rolls out S draft steps instead, and each request keeps its
+predictions, drafts and per-step shadow snapshots); (3) let the
+``BatchComposer`` pick up to ``max_batch`` requests; (4) run one composed
+``decode_batch_spec`` through the engine (a one-token step, or a verify
+wave of B*S rows), with load events tagged by the batch's request ids,
 and charge its duration on the ``DecodeClock``; (5) split the batch back
-into per-request states and retire finished requests.
+into per-request states (under speculation each request commits its own
+accepted prefix, capped by its budget, and lands its shadow on the
+matching snapshot) and retire finished requests.
 
 KV memory is a budget when the loop carries a ``KVPool``: a request whose
 prompt pages do not fit is deferred (FIFO, or by tenant weight under
@@ -35,9 +40,10 @@ on B or on the cache window.
 
 An engine built with ``prefetch`` and ``residency`` serves the same
 tokens and events; ``ServeResult.prefetch_stats`` carries its
-``prefetch_report()``.  Not ported (each raises ``NotImplementedError``
-at the engine): speculation (S > 1) and fault injection.  The cluster
-router waits for ``fleet/`` (ROADMAP.md queue 1, item 4).
+``prefetch_report()``, and ``ServeResult.spec_stats`` the acceptance of a
+speculating engine.  Not ported: fault injection (it raises at the
+engine) and the cluster router, which waits for ``fleet/`` (ROADMAP.md
+queue 1, "fleet/, then serve/cluster.py").
 """
 from __future__ import annotations
 
@@ -126,6 +132,9 @@ class ServeResult:
     kv_stats: Optional[Dict] = None      # pool counters + swap seconds
     prefetch_stats: Optional[Dict] = None  # engine.prefetch_report(), when
     #                                        prefetch or residency ran
+    # speculating engines: {"speculate", "waves", "committed", "acceptance",
+    # "per_request": {rid: {"waves", "committed", "acceptance"}}}
+    spec_stats: Optional[Dict] = None
 
     @property
     def mean_batch(self) -> float:
@@ -155,6 +164,9 @@ class ServingLoop:
         if admit not in ("fifo", "priority"):
             raise ValueError(f"unknown admission policy {admit!r}")
         self.engine = engine
+        # the wave width rides on the engine; the loop rolls out the peeks
+        # and commits per request
+        self.speculate = engine.speculate
         self.kv_pool = kv_pool
         self.composer = composer or BatchComposer(max_batch, kv_pool=kv_pool)
         if kv_pool is not None and self.composer.kv_pool is None:
@@ -282,16 +294,17 @@ class ServingLoop:
 
     def _ensure_batch_pages(self, batch: List[RequestState], queue: RequestQueue,
                             clock: DecodeClock) -> List[RequestState]:
-        """Every member gets the page its next slot writes into, preempting
-        one runnable request per exhaustion; each preemption shrinks the
-        runnable set, so this ends."""
+        """Every member gets the pages its next step writes into (a verify
+        wave writes up to ``speculate`` slots), preempting one runnable
+        request per exhaustion; each preemption shrinks the runnable set, so
+        this ends."""
         pool = self.kv_pool
         for state in batch:
             if state.preempted:              # lost its pages to an older member
                 continue
             while True:
                 try:
-                    pool.ensure(state.rid, int(state.pos[0]) + 1)
+                    pool.ensure(state.rid, int(state.pos[0]) + self.speculate)
                     break
                 except PoolExhausted:
                     victim = preemption_victim(queue.runnable(), self.preempt_policy,
@@ -306,7 +319,9 @@ class ServingLoop:
         """Step every runnable request lacking a peek as one composed shadow
         decode.  Alignment applies to each request's own shadow state first
         (at its own iteration index); the composed step is sliced back and
-        cached until the request takes that step."""
+        cached until the request takes that step.  With ``speculate=S`` the
+        composed shadow rolls out S steps: each request keeps S predictions,
+        S snapshots (the rollback targets) and its S-1 drafts."""
         eng = self.engine
         if eng.shadow is None:
             return
@@ -324,10 +339,12 @@ class ServingLoop:
             aligned.append(dict(sh, token=state.token if at else sh["token"]))
             flags.append((at, ak))
         composed = concat_shadow_states(aligned)
-        preds, st = eng.shadow.step_state(composed, composed["token"])
+        drafts, preds_steps, snapshots = eng.shadow.rollout_states(
+            composed, composed["token"], self.speculate)
         for i, (state, (at, ak)) in enumerate(zip(need, flags)):
-            p_i = [{li: p[i:i + 1] for li, p in preds.items()}]
-            state.pending = (p_i, [slice_shadow_state(st, i)], at, ak)
+            p_i = [{li: p[i:i + 1] for li, p in preds.items()} for preds in preds_steps]
+            s_i = [slice_shadow_state(st, i) for st in snapshots]
+            state.pending = (p_i, s_i, at, ak, drafts[i:i + 1].clone())
 
     # --------------------------------------------------------------- run
     def start(self, requests: Sequence[Request]) -> None:
@@ -427,6 +444,17 @@ class ServingLoop:
         eng.close()
         prefetch_stats = (eng.prefetch_report()
                           if eng.prefetch is not None or eng.residency is not None else None)
+        spec_stats = None
+        if self.speculate > 1:
+            per = {rid: {"waves": s.spec_waves, "committed": s.spec_committed,
+                         "acceptance": (s.spec_committed / (s.spec_waves * self.speculate)
+                                        if s.spec_waves else 0.0)}
+                   for rid, s in sorted(queue.finished.items())}
+            tw = sum(v["waves"] for v in per.values())
+            tc = sum(v["committed"] for v in per.values())
+            spec_stats = {"speculate": self.speculate, "waves": tw, "committed": tc,
+                          "acceptance": tc / (tw * self.speculate) if tw else 0.0,
+                          "per_request": per}
         kv_stats = None
         if self.kv_pool is not None:
             kv_stats = self.kv_pool.stats.as_dict()
@@ -445,13 +473,18 @@ class ServingLoop:
         outputs = {rid: np.asarray(s.generated, np.int32) for rid, s in states.items()}
         return ServeResult(outputs=outputs, timings=timings, trace=self._trace,
                            steps=self._steps, states=states, n_workers=eng.sched.n_workers,
-                           kv_stats=kv_stats, prefetch_stats=prefetch_stats)
+                           kv_stats=kv_stats, prefetch_stats=prefetch_stats,
+                           spec_stats=spec_stats)
 
     # ------------------------------------------------------ composed step
     def _decode_composed(self, batch: List[RequestState], clock: DecodeClock,
                          queue_counts: Dict[str, int]) -> None:
-        """One composed one-token step over ``batch``."""
-        eng = self.engine
+        """One composed step over ``batch``: a one-token step, or under
+        ``speculate=S`` a verify wave in which each request commits its own
+        accepted prefix (capped by its remaining budget) and lands its
+        shadow on the snapshot of that commit, so a rejection drops only
+        that request's unconsumed drafts."""
+        eng, S = self.engine, self.speculate
         pos = torch.cat([s.pos for s in batch])
         caches = concat_cache_lists([s.cache_list for s in batch])
         preds: Dict[int, np.ndarray] = {}
@@ -462,14 +495,21 @@ class ServingLoop:
                 preds[li] = np.concatenate([p[li] for p in per_req])
             at = any(s.pending[2] for s in batch)
             ak = any(s.pending[3] for s in batch)
-        tokens = torch.cat([s.token for s in batch])[:, None]
+        if S > 1:
+            # column 0 the true last token, columns 1.. the drafts
+            tokens = torch.cat([torch.cat([s.token[:, None], s.pending[4]], dim=1)
+                                for s in batch])
+            budget = [s.request.max_new_tokens - len(s.generated) for s in batch]
+        else:
+            tokens = torch.cat([s.token for s in batch])[:, None]
+            budget = None
         # index == the engine step counter, as in generate()
         rec = TokenRecord(index=self._step, aligned_token=at, aligned_kv=ak)
         eng.slots.set_request_context([s.rid for s in batch])
         eng._sync()
         t0 = time.perf_counter()
-        verified, commits, caches, pos = eng.decode_batch_spec(tokens, caches, pos, preds,
-                                                               self._step, rec)
+        verified, commits, caches, pos = eng.decode_batch_spec(
+            tokens, caches, pos, preds, self._step, rec, max_commit=budget)
         eng._sync()
         wall = time.perf_counter() - t0
         eng.slots.set_request_context(())
@@ -481,25 +521,31 @@ class ServingLoop:
             duration_s=duration, stall_s=stall, alive_workers=clock.alive_workers(),
             kv_pages_used=self.kv_pool.pages_used if self.kv_pool is not None else -1,
             queue_counts=queue_counts, wall_s=wall))
-        out = verified.cpu()
+        out, commits = verified.cpu(), commits.cpu().tolist()
+        sl = rec.spec_len                    # wave rows per request
         for i, state in enumerate(batch):
-            ci = int(commits[i])
+            ci = commits[i]
             state.token = verified[i, ci - 1:ci]
             state.cache_list = slice_cache_list(caches, i)
             state.pos = pos[i:i + 1]
             state.generated.extend(out[i, :ci].tolist())
             if state.pending is not None:
+                # the snapshot that consumed exactly the accepted tokens
                 state.shadow_state = state.pending[1][ci - 1]
             state.pending = None
+            state.spec_waves += 1
+            state.spec_committed += ci
+            lo = i * sl                      # the request's wave rows; the accepted count
             state.last_experts = frozenset((lr.layer, int(e)) for lr in rec.layers
-                                           for e in lr.true[i:i + ci].reshape(-1))
-            sliced = self._slice_record(rec, i, i + ci)
+                                           for e in lr.true[lo:lo + ci].reshape(-1))
+            sliced = self._slice_record(rec, lo, lo + ci)
             sliced.index = len(state.generated) - ci
             state.trace.records.append(sliced)
 
     @staticmethod
     def _slice_record(rec: TokenRecord, lo: int, hi: int) -> TokenRecord:
-        """One request's view of a composed record: its rows ``lo:hi``.
+        """One request's view of a composed record: its accepted wave rows
+        ``lo:hi`` (one row for a one-token step).
         Loads are shared across the batch, so it carries routing and recall
         only; load accounting lives in the composed trace and the event
         log."""

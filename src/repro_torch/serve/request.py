@@ -57,10 +57,11 @@ class RequestState:
     cache_list: list              # per-layer caches with batch axis 1, or a paged handle
     pos: object                   # (1,) absolute position (tensor)
     shadow_state: Optional[dict] = None
-    # cached shadow peek (preds_steps, snapshots, aligned_token, aligned_kv),
-    # valid until the request's next committed step: length-1 lists of
-    # {layer: (1, k)} predictions and of the shadow state after the step
-    # (a wave of S positions would carry S of each; speculation waits)
+    # cached shadow peek (preds_steps, snapshots, aligned_token, aligned_kv,
+    # drafts), valid until the request's next committed step: S-long lists
+    # of {layer: (1, k)} predictions and of the shadow state after each of
+    # the S draft steps, and the (1, S-1) draft tokens (S = the engine's
+    # ``speculate``; S = 1 is the one-token peek)
     pending: Optional[tuple] = None
     generated: List[int] = field(default_factory=list)
     last_experts: FrozenSet[Tuple[int, int]] = frozenset()
@@ -77,6 +78,9 @@ class RequestState:
     prefilling: bool = False
     prefill_chunks: List[int] = field(default_factory=list)
     prefill_chunk_s: List[float] = field(default_factory=list)
+    # speculative decoding: verify waves taken and tokens they committed
+    spec_waves: int = 0
+    spec_committed: int = 0
 
     @property
     def rid(self) -> int:

@@ -28,7 +28,8 @@ def prompt(cfg, seed: int, length: int = 12):
 
 def torch_trace(trace):
     """A JAX engine ``Trace`` as the port's ``Trace``: the same records
-    (tokens, routing, predictions, gates, waves), as numpy."""
+    (tokens, routing, predictions, gates, waves, wave widths and commits),
+    as numpy."""
     from repro_torch.core import LayerRecord, TokenRecord, Trace
 
     def arr(a):
@@ -37,7 +38,8 @@ def torch_trace(trace):
     out = Trace()
     for rec in trace.records:
         tr = TokenRecord(index=rec.index, aligned_token=rec.aligned_token,
-                         aligned_kv=rec.aligned_kv)
+                         aligned_kv=rec.aligned_kv, spec_len=rec.spec_len,
+                         committed=rec.committed)
         for lr in rec.layers:
             tr.layers.append(LayerRecord(
                 layer=lr.layer, moe_index=lr.moe_index, group=lr.group,

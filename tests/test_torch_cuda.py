@@ -3,18 +3,21 @@ packed-weight twin, flash-decode attention, the SSD inter-chunk scan and
 the w8a16 matmul against their plain PyTorch versions (and the two FFNs
 against each other), their invariances and refusals, the engine on the
 card (full-width and packed-resident slots, with prefetch on a side
-stream and residency) and the serving loop on the card against solo
-decoding, attention-only and hybrid.
+stream and residency), speculative verify waves and decoding, and the
+serving loop on the card against solo decoding, attention-only, hybrid
+and speculative.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the
 JAX package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 import torch
 
-from repro_torch.core import ChaosExecutor, ODMoEEngine
+from repro_torch.core import AlignmentPolicy, ChaosExecutor, ODMoEEngine, spec_attn_decode
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_kernel, flash_decode_ref
 from repro_torch.kernels.flash_decode import kernel as flash_lib
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_kernel, int8_matmul_ref
@@ -25,7 +28,7 @@ from repro_torch.kernels.moe_gemm import (grouped_topk_contrib, grouped_topk_con
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_kernel, ssd_scan_ref
 from repro_torch.models import ModelConfig, decode_step, greedy_generate, init_params, prefill
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.transformer import tree_concat
+from repro_torch.models.transformer import layer_params, tree_concat
 from repro_torch.quant import TieredPolicy, dequantize_tiles, device_layout, get_codec
 from repro_torch.serve import KVPool, ServingLoop, make_traffic
 
@@ -895,3 +898,71 @@ def test_prefetch_and_residency_on_the_card_equal_sync_and_greedy(dev, packed):
             assert torch.equal(toks, ref)
             assert events == base[1]
             assert rep["bytes_moved"] == base[2]["bytes_moved"]
+
+
+# -------------------------------------------------------------- speculation
+SPEC = ModelConfig(name="t-spec", family="moe", num_layers=4, d_model=64, num_heads=4,
+                   num_kv_heads=2, d_ff=0, d_expert=96, vocab_size=97, num_experts=8, top_k=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [2, 4])
+def test_verify_rows_equal_one_token_rows_through_the_kernel(dev, dtype, S):
+    """Mixtral's attention shape (8 kv heads of 4 queries, Hd 128): row
+    ``b*S + s`` of a verify wave equals, bit for bit, ``attn_decode`` on
+    the cache sequential decode holds, both through the flash-decode
+    kernel, and the wave's cache rows equal the sequential caches."""
+    cfg = dataclasses.replace(SPEC, d_model=512, num_heads=32, num_kv_heads=8, head_dim=128,
+                              dtype=dtype)
+    mixer = layer_params(cfg, init_params(cfg, seed=2, device=dev), 0)["mixer"]
+    g = torch.Generator(device=dev).manual_seed(S)
+    bases, w = [7, 20, 1], 25
+    b = len(bases)
+    x = torch.randn((b * S, 1, cfg.d_model), generator=g, device=dev).to(getattr(torch, dtype))
+    cache = attn_lib.init_cache(cfg, b, w, x.dtype, dev)
+    for i, base in enumerate(bases):
+        cache["k"][i, :base] = torch.randn((base, 8, 128), generator=g, device=dev).to(x.dtype)
+        cache["v"][i, :base] = torch.randn((base, 8, 128), generator=g, device=dev).to(x.dtype)
+        cache["pos"][i, :base] = torch.arange(base, device=dev, dtype=torch.int32)
+    pos = (torch.tensor(bases, device=dev)[:, None] + torch.arange(S, device=dev)).reshape(-1)
+    before = flash_decode_kernel.launches
+    out, wave = spec_attn_decode(cfg, mixer, x, cache, pos.to(torch.int32), S)
+    assert flash_decode_kernel.launches == before + 1
+    for i in range(b):
+        seq = {n: t[i:i + 1] for n, t in cache.items()}
+        for s in range(S):
+            r = i * S + s
+            one, seq = attn_lib.attn_decode(cfg, mixer, x[r:r + 1], seq,
+                                            pos[r:r + 1].to(torch.int32))
+            assert torch.equal(one, out[r:r + 1]), (i, s)
+            for n in ("k", "v", "pos"):
+                assert torch.equal(seq[n], wave[n][r:r + 1]), (i, s, n)
+
+
+def test_speculative_generate_on_the_card_equals_greedy(dev):
+    params = init_params(SPEC, seed=5, device=dev)
+    batch = {"tokens": torch.randint(0, 97, (1, 12), generator=torch.Generator()
+                                     .manual_seed(6), dtype=torch.int32).to(dev)}
+    ref = greedy_generate(SPEC, params, batch, 9)
+    before = flash_decode_kernel.launches, moe_ffn_kernel.launches
+    for policy in ((1, 1), (0, 0)):
+        eng = ODMoEEngine(SPEC, params, predictor="sep", speculate=4, device=dev)
+        toks, trace = eng.generate(batch, 9, AlignmentPolicy(*policy))
+        assert torch.equal(toks, ref), policy
+        assert sum(r.committed for r in trace.records) == 8
+    assert flash_decode_kernel.launches > before[0] and moe_ffn_kernel.launches > before[1]
+
+
+def test_speculative_paged_serving_on_the_card_equals_solo(dev):
+    params = init_params(SPEC, seed=5, device=dev)
+    reqs = make_traffic(SPEC, 6, 0.0, prompt_len=24, max_new=8, seed=2)
+    window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+    pool = KVPool(SPEC, num_pages=-(-window // 4) * 4 // 2, page_tokens=4, device=dev)
+    eng = ODMoEEngine(SPEC, params, predictor="sep", speculate=2, device=dev)
+    res = ServingLoop(eng, max_batch=4, kv_pool=pool).run(reqs)
+    assert res.mean_batch > 1
+    for r in reqs:
+        solo = greedy_generate(SPEC, params, {"tokens": torch.as_tensor(r.prompt, device=dev)
+                                              [None, :]}, r.max_new_tokens)
+        assert solo[0].cpu().tolist() == res.outputs[r.rid].tolist(), r.rid
+        assert res.spec_stats["per_request"][r.rid]["committed"] == r.max_new_tokens - 1

@@ -166,7 +166,7 @@ def test_shared_store_of_another_policy_raises_as_jax_does(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    {"speculate": 2}, {"profiles": [object()] * 8}, {"faults": object()},
+    {"profiles": [object()] * 8}, {"faults": object()},
     {"compute_vs_ship": True}, {"wave_compute": "loop"}])
 def test_unported_engine_options_raise(setup, kw):
     _, _, tcfg, tparams, _ = setup

@@ -336,13 +336,6 @@ def test_shadow_state_concat_slice_round_trip(served):
 
 def test_unported_serving_options_raise(served):
     tcfg, tparams = served["tcfg"], served["tparams"]
-    with pytest.raises(NotImplementedError):
-        ODMoEEngine(tcfg, tparams, speculate=2, device="cpu")
-    eng = ODMoEEngine(tcfg, tparams, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.decode_batch_spec(torch.zeros((1, 2), dtype=torch.int32), [], torch.zeros(1),
-                              {}, 0, TokenRecord(index=0, aligned_token=False,
-                                                 aligned_kv=False))
     args = build_parser().parse_args(["--requests", "2", "--replicas", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError):
         serve_traffic(tcfg, tparams, args)
