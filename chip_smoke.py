@@ -96,6 +96,34 @@ Phases, each of which ends the run with a non-zero exit on failure:
 8d. spec-serve — the serve phase's traffic with ``--speculate 2``: every
              request equals its solo decode and commits ``max_new_tokens -
              1`` in waves; composed-step times by B beside the serve phase's.
+8e. fleet  — the slice's model and prompt on a heterogeneous fleet
+             (workers 0-3: two slots on 24 GB/s links, workers 4-7: one
+             slot on 12 GB/s links, groups of 2) under a fault script: the
+             worker taking MoE layer 1's first predicted expert dies right
+             after that load at step 2 (stranding it) and recovers at step
+             5, and worker 6's link is throttled to a quarter at step 3.
+             The synchronous engine, the synchronous engine with LRU
+             residency and ``prefetch="thread"`` with LRU residency, on one
+             expert store: tokens equal the slice's ``greedy_generate``; the
+             threaded run's load events and stats equal the synchronous
+             LRU run's; one failure and one recovery, and (synchronous
+             engine) at least one dropped resident and one reload at the
+             kill step; no load lands on a worker while the script has it
+             dead.  Prints wall TPOT on healthy and degraded steps, loads
+             and reloads per token, bytes moved and slot bytes per worker,
+             peak memory and the modelled ``degraded_report``.
+8f. fleet-serve — the serve phase's traffic and pool through
+             ``ServingLoop`` on a uniform 8-worker fleet that loses worker 2
+             at global step 3 and, mid-layer at step 6, the worker taking
+             MoE layer 0's first predicted expert (right after that load,
+             stranding it), and gets worker 2 back at step 9: every request
+             equals the serve phase's output for it (its solo decode),
+             ``StepRecord.alive_workers`` follows the script (8, 7, 6, 7),
+             the mid-layer kill dropped at least one resident and at least
+             one expert reloaded at step 6, and no load landed on a worker
+             while the script had it dead.  Prints
+             ``degraded_report()``, composed-step times by B and the
+             kernels' launches.
 9. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
              width in fp32 (2 layers), transport int8, nf4 and tiered in
              turn: engine tokens equal ``greedy_generate`` under the same
@@ -787,7 +815,7 @@ def phase_slice() -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_gemm import moe_ffn_kernel
-    from repro_torch.launch.serve import build_parser, serve_single
+    from repro_torch.launch.serve import _prompt, build_parser, serve_single
     from repro_torch.models import init_params
     full = get_config("mixtral-8x7b")
     cfg = dataclasses.replace(full, num_layers=4, padded_experts=0)
@@ -837,7 +865,8 @@ def phase_slice() -> dict:
           f"SEP shadow; CUDA-synchronized host clock, median of 3): {prefill:.3f} ms",
           flush=True)
     return {"launches": res["launches_engine"]["moe_ffn"], "cfg": cfg, "params": params,
-            "prefill_ms": prefill}
+            "prefill_ms": prefill, "reference": res["reference"],
+            "batch": _prompt(cfg, args.prompt_len, args.seed, "cuda")}
 
 
 SERVE_SEED = 4     # the first make_traffic seed whose burst makes the half-dense pool preempt
@@ -903,7 +932,7 @@ def phase_serve(cfg, params) -> dict:
           f"{out['launches_serving']}; in the solo greedy_generate check "
           f"{out['launches_reference']} (all {launches})")
     return {"launches": out["launches_serving"], "steps_by_b": steps_by_b(res),
-            "peak_gb": peak, "built_gb": built}
+            "peak_gb": peak, "built_gb": built, "outputs": res.outputs}
 
 
 def steps_by_b(res) -> dict:
@@ -1275,6 +1304,244 @@ def phase_spec_serve(cfg, params, sync_steps: dict) -> dict:
     return {"steps_by_b": by_b, "stats": ss, "launches": out["launches_serving"],
             "peak_gb": out["serving_peak_bytes"] / 1e9,
             "built_gb": out["build_peak_bytes"] / 1e9}
+
+
+# The fleet phase's heterogeneous fleet: workers 0-3 hold two expert slots
+# on 24 GB/s links, workers 4-7 one slot on 12 GB/s links (groups of 2).
+FLEET_KILL_STEP, FLEET_RECOVER_STEP, FLEET_KILL_LAYER = 2, 5, 1
+# (name, prefetch, residency): the synchronous engine, the synchronous
+# engine with LRU residency, and the threaded executor held to the latter
+FLEET_RUNS = (("sync", None, None), ("sync+lru", None, "lru"), ("thread+lru", "thread", "lru"))
+
+
+def fleet_profiles():
+    from repro_torch.fleet import WorkerProfile
+    return tuple(WorkerProfile(w, link_gbps=24.0 if w < 4 else 12.0, capacity=2 if w < 4 else 1)
+                 for w in range(8))
+
+
+def alive_by_step(script, steps, n_workers: int) -> list:
+    """Alive workers after each step's faults, replayed from the script
+    alone (no engine): what ``StepRecord.alive_workers`` must read."""
+    from repro_torch.fleet import FaultInjector, FleetState
+    state, inj, out = FleetState.fresh(n_workers), FaultInjector(script), []
+    for step in steps:
+        inj.apply_step_all(step, state)
+        out.append(state.n_alive)
+    return out
+
+
+def loads_on_dead_workers(events, script, moe_index_of: dict) -> list:
+    """Load events that landed on a worker while it was dead, reckoned from
+    the script and the event order alone.  Within a step, a step-scoped
+    event fires before every load, a mid-layer kill after its layer's
+    predicted loads and before its reloads."""
+    # (step, MoE layer, phase): phase 0 predicted loads, 1 a mid-layer
+    # event, 2 reloads; a step-scoped event comes before every layer
+    marks = sorted(((ev.step, -1, 0) if ev.moe_index is None else (ev.step, ev.moe_index, 1),
+                    ev.worker, ev.kind) for ev in script if ev.kind in ("kill", "recover"))
+    bad = []
+    for e in events:
+        key = (e.token, moe_index_of[e.layer], 0 if e.predicted else 2)
+        state = [kind for mark, w, kind in marks if w == e.worker and mark < key]
+        if state and state[-1] == "kill":
+            bad.append(e)
+    return bad
+
+
+def phase_fleet(cfg, params, slice_run: dict) -> dict:
+    """The slice's model on a heterogeneous fleet under a fault script: a
+    mid-layer kill that strands a predicted expert, its recovery and a
+    throttle, through the synchronous engine, the synchronous engine with
+    LRU residency and the threaded executor with LRU residency, all on one
+    expert store."""
+    import statistics
+    import torch
+    from repro_torch.core import (RTX3090_EDGE, ExpertStore, ODMoEEngine, degraded_tpot_report,
+                                  simulate_odmoe)
+    from repro_torch.fleet import FaultEvent, FaultInjector, FleetSchedule
+    from repro_torch.launch.serve import KERNELS
+    profiles = fleet_profiles()
+    # the worker that takes MoE layer 1's first predicted expert: killed
+    # right after that load, it strands the expert
+    victim = FleetSchedule(8, 2, profiles=profiles).load_targets(FLEET_KILL_LAYER)[0]
+    script = [FaultEvent(FLEET_KILL_STEP, victim, "kill", moe_index=FLEET_KILL_LAYER),
+              FaultEvent(FLEET_RECOVER_STEP, victim, "recover"),
+              FaultEvent(3, 6, "throttle", factor=0.25)]
+    batch, ref = slice_run["batch"], slice_run["reference"]
+    print(f"[fleet] profiles (worker, link GB/s, slots): "
+          f"{[(p.worker, p.link_gbps, p.capacity) for p in profiles]}; groups of 2")
+    print(f"[fleet] fault script: {script}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    store = ExpertStore(cfg, params)
+    print(f"[fleet] expert store packed in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {"runs": {}, "launches": {name: 0 for name in KERNELS}, "store": store}
+    base_events = None
+    for name, prefetch, residency in FLEET_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ODMoEEngine(cfg, params, n_workers=8, predictor="sep", shadow_scheme="int8",
+                          device="cuda", prefetch=prefetch, residency=residency, store=store,
+                          profiles=profiles, faults=FaultInjector(script))
+        moe_index_of = {li: i for i, li in enumerate(eng.moe_layers)}
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        toks, trace = eng.generate(batch, 8)
+        eng.close()
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for n in launches:
+            out["launches"][n] += launches[n]
+        st = eng.slots.stats
+        if not torch.equal(toks, ref):
+            fail(f"fleet {name}: engine tokens differ from greedy_generate")
+        if launches["moe_ffn"] <= 0:
+            fail(f"fleet {name}: the engine did not launch moe_ffn")
+        if (st["failures"], st["recoveries"]) != (1, 1):
+            fail(f"fleet {name}: stats {st}, not one failure and one recovery")
+        reloads_at_kill = sum(1 for e in eng.slots.events
+                              if e.token == FLEET_KILL_STEP and not e.predicted)
+        if name == "sync" and (st["failure_drops"] < 1 or reloads_at_kill < 1):
+            fail(f"fleet {name}: the kill stranded nothing or nothing reloaded at step "
+                 f"{FLEET_KILL_STEP} (stats {st})")
+        dead = loads_on_dead_workers(eng.slots.events, script, moe_index_of)
+        if dead:
+            fail(f"fleet {name}: loads on a dead worker: {dead}")
+        events = [(e.token, e.layer, e.expert, e.worker, e.predicted, e.bytes, e.scheme)
+                  for e in eng.slots.events]
+        if name == "sync+lru":
+            base_events = events
+        elif name == "thread+lru" and events != base_events:
+            fail("fleet thread+lru: load events differ from the synchronous engine's "
+                 "(sync+lru)")
+        steps = len(trace.records)
+        alive = alive_by_step(script, [r.index for r in trace.records], 8)
+        wall = degraded_tpot_report([r.seconds for r in trace.records], alive, 8)
+        modelled = simulate_odmoe(cfg, trace, eng.sched, RTX3090_EDGE, shadow_scheme="int8",
+                                  faults=FaultInjector(script)).degraded_report(8)
+        moved = [0] * 8
+        for e in eng.slots.events:
+            moved[e.worker] += e.bytes
+        slot_bytes = [eng.slots.slot_unit_bytes() * c for c in eng.slots.capacity]
+        tpot = statistics.median(r.seconds for r in trace.records) * 1e3
+        per_step = [(r.index, round(r.seconds * 1e3, 3), "degraded" if a < 8 else "healthy")
+                    for r, a in zip(trace.records, alive)]
+        run = dict(tpot_ms=tpot, per_step=per_step, healthy_ms=wall["tpot_healthy_s"] * 1e3,
+                   degraded_ms=wall["tpot_degraded_s"] * 1e3,
+                   degraded_steps=wall["degraded_steps"], loads_per_token=st["loads"] / steps,
+                   reloads_per_token=st["reloads"] / steps, reloads_at_kill=reloads_at_kill,
+                   peak_gb=peak, modelled=modelled, stats=dict(st), moved=moved,
+                   per_worker_bytes=eng.memory_report()["per_worker_bytes"])
+        out["runs"][name] = run
+        print(f"[fleet] {name:10s}: tokens == greedy_generate: True; no load on a dead worker; "
+              f"stats {st}; fired {len(eng.faults.applied)} events; alive after each step "
+              f"{alive}", flush=True)
+        print(f"[fleet] {name:10s}: TPOT (card's own wall time, mean) healthy "
+              f"{run['healthy_ms']:.3f} ms over {steps - wall['degraded_steps']} steps, degraded "
+              f"{run['degraded_ms']:.3f} ms over {wall['degraded_steps']} steps, median of all "
+              f"{tpot:.3f} ms; per token {run['loads_per_token']:.3f} loads, "
+              f"{run['reloads_per_token']:.3f} reloads ({reloads_at_kill} reloads at the kill "
+              f"step {FLEET_KILL_STEP}); peak device memory while decoding {peak:.2f} GB; "
+              f"moe_ffn launches {launches['moe_ffn']}", flush=True)
+        print(f"[fleet] {name:10s}: per-step wall time (card's own, ms) {per_step}")
+        print(f"[fleet] {name:10s}: bytes moved per worker {moved}; slot bytes provisioned per "
+              f"worker {slot_bytes} (memory_report per_worker_bytes "
+              f"{run['per_worker_bytes']})")
+        print(f"[fleet] {name:10s}: modelled ({RTX3090_EDGE.name} profile, not measured) "
+              f"degraded_report {modelled}", flush=True)
+        del eng, toks, trace
+    if out["runs"]["thread+lru"]["stats"] != out["runs"]["sync+lru"]["stats"]:
+        fail("fleet thread+lru: slot stats differ from the synchronous engine's (sync+lru)")
+    print("[fleet] thread+lru load events and stats == sync+lru's: True")
+    return out
+
+
+FLEET_SERVE_KILL_STEP = 6
+
+
+def phase_fleet_serve(cfg, params, serve: dict, store) -> dict:
+    """The serve phase's traffic and pool on a uniform 8-worker fleet that
+    loses worker 2 at global step 3, and at step 6 the worker taking MoE
+    layer 0's first predicted expert, right after that load; worker 2
+    comes back at step 9.  Every request must equal the serve phase's
+    output for it (which equalled its solo decode), and the mid-layer kill
+    must strand an expert that then reloads."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core import ODMoEEngine
+    from repro_torch.fleet import FaultEvent, FaultInjector, FleetSchedule
+    from repro_torch.launch.serve import KERNELS
+    from repro_torch.serve import BatchComposer, KVPool, ServingLoop, make_traffic
+    max_batch, page_tokens = 4, 16
+    reqs = make_traffic(cfg, 8, 0.0, prompt_len=128, max_new=8, seed=SERVE_SEED)
+    window = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 2
+    pages = math.ceil(window / page_tokens) * max_batch // 2
+    # a step-scoped kill finds the cacheless engine's slots empty (it
+    # evicts after each layer); only a kill between a layer's predicted
+    # loads and its waves strands an expert
+    victim = FleetSchedule(8, 2).load_targets(0)[0]
+    script = [FaultEvent(3, 2, "kill"),
+              FaultEvent(FLEET_SERVE_KILL_STEP, victim, "kill", moe_index=0),
+              FaultEvent(9, 2, "recover")]
+    print(f"[fleet-serve] fault script: {script}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ODMoEEngine(cfg, params, n_workers=8, predictor="sep", shadow_scheme="int8",
+                      device="cuda", store=store, faults=FaultInjector(script))
+    pool = KVPool(cfg, num_pages=pages, page_tokens=page_tokens, device="cuda")
+    loop = ServingLoop(eng, max_batch=max_batch,
+                       composer=BatchComposer(max_batch, "overlap", kv_pool=pool), kv_pool=pool)
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = loop.run(reqs)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for r in reqs:
+        if not np.array_equal(res.outputs[r.rid], serve["outputs"][r.rid]):
+            fail(f"fleet-serve: request {r.rid} differs from its solo decode")
+    alive = [s.alive_workers for s in res.steps]
+    want = alive_by_step(script, [s.step for s in res.steps], 8)
+    runs = [a for i, a in enumerate(alive) if i == 0 or a != alive[i - 1]]
+    if alive != want or runs != [8, 7, 6, 7]:
+        fail(f"fleet-serve: alive workers by step {alive}, the script gives {want}")
+    for name in ("moe_ffn", "flash_decode"):
+        if launches[name] <= 0:
+            fail(f"fleet-serve: {name} did not launch")
+    st = eng.slots.stats
+    if (st["failures"], st["recoveries"]) != (2, 1):
+        fail(f"fleet-serve: stats {st}, not two failures and one recovery")
+    at_kill = [e for e in eng.slots.events if e.token == FLEET_SERVE_KILL_STEP]
+    stranded = [e.expert for e in at_kill if e.predicted and e.worker == victim and e.layer ==
+                eng.moe_layers[0]]
+    reloads = [(e.layer, e.expert, e.worker) for e in at_kill if not e.predicted]
+    dead = loads_on_dead_workers(eng.slots.events, script,
+                                 {li: i for i, li in enumerate(eng.moe_layers)})
+    if dead:
+        fail(f"fleet-serve: loads on a dead worker: {dead}")
+    if st["failure_drops"] < 1 or not reloads:
+        fail(f"fleet-serve: the kill of worker {victim} at step {FLEET_SERVE_KILL_STEP} stranded "
+             f"nothing or nothing reloaded then (stats {st})")
+    by_b = steps_by_b(res)
+    rep = res.degraded_report()
+    print(f"[fleet-serve] ServingLoop.run took {took:.1f} s; tokens of all {len(reqs)} requests "
+          f"== solo greedy_generate (the serve phase's outputs); mean batch "
+          f"{res.mean_batch:.2f} over {len(res.steps)} composed steps; preemptions "
+          f"{res.kv_stats['preemptions']}; alive workers by step {alive}; stats {st}; peak "
+          f"device memory {peak:.2f} GB")
+    print(f"[fleet-serve] step {FLEET_SERVE_KILL_STEP}: worker {victim} held experts {stranded} "
+          f"of MoE layer 0 when it died; reloads then (layer, expert, worker) {reloads}")
+    print(f"[fleet-serve] composed step (card's own wall time): {fmt_steps(by_b)}; serve phase "
+          f"of this run: {fmt_steps(serve['steps_by_b'])}")
+    print(f"[fleet-serve] modelled degraded_report() (rtx3090-edge profile, not measured): {rep}")
+    print(f"[fleet-serve] launches (engine+shadow): moe_ffn {launches['moe_ffn']}, flash_decode "
+          f"{launches['flash_decode']}", flush=True)
+    return {"launches": launches, "steps_by_b": by_b, "report": rep, "peak_gb": peak}
 
 
 INT8_SWEEP = ((32, 128, 64), (64, 256, 96), (13, 70, 33))   # tests/test_kernels.py's shapes
@@ -1911,7 +2178,9 @@ def main():
     pserve = phase_prefetch_serve(cfg, params, serve["steps_by_b"])
     spec = phase_spec(cfg, params)
     sserve = phase_spec_serve(cfg, params, serve["steps_by_b"])
-    del cfg, params
+    fleet = phase_fleet(cfg, params, moe)
+    fserve = phase_fleet_serve(cfg, params, serve, fleet.pop("store"))
+    del cfg, params, moe["batch"], moe["reference"]
     gc.collect()
     torch.cuda.empty_cache()
     packed = phase_packed_slice()
@@ -1941,6 +2210,8 @@ def main():
         "launches": moe["launches"], "max_abs_err": row["max_abs_err"],
         "spec_launches": spec["launches"]["moe_ffn"],
         "spec_serve_launches": sserve["launches"]["moe_ffn"],
+        "fleet_launches": fleet["launches"]["moe_ffn"],
+        "fleet_serve_launches": fserve["launches"]["moe_ffn"],
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} bf16 weights (engine wave)",
@@ -1970,6 +2241,7 @@ def main():
                  "step)",
         "spec_launches": spec["launches"]["flash_decode"],
         "spec_serve_launches": sserve["launches"]["flash_decode"],
+        "fleet_serve_launches": fserve["launches"]["flash_decode"],
         "verify_ms": vrow["ms"], "verify_plain_ms": vrow["plain_ms"],
         "verify_library_ms": vrow["library_ms"], "verify_bound_ms": vrow["bound_ms"],
         "verify_bound_by": vrow["bound_by"], "verify_max_abs_err": vrow["max_abs_err"],

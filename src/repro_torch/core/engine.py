@@ -40,10 +40,17 @@ one ``decode_batch_spec`` wave verifies them as B*k ordinary decode
 rows, and the longest agreeing prefix is committed.  Same tokens, fewer
 steps.
 
+``profiles`` (``repro_torch.fleet.WorkerProfile``s: link bandwidth and
+slot capacity per worker) and ``faults`` (a ``FaultInjector``) run the
+heterogeneous, fault-tolerant fleet on a ``FleetSchedule``: dead workers
+drop out of every order, multi-slot workers absorb extra predicted
+experts, and a worker that dies mid-layer strands its predicted experts,
+which reload on a survivor.  Faults cost reloads and time, never a token.
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md
-queue 1, "fleet/, then serve/cluster.py" and "the wave_compute='loop'
-oracle"): fleet profiles and faults, compute-vs-ship, and the per-pair
-``loop`` wave oracle.
+queue 1, "placement and compute-vs-ship, then serve/cluster.py" and "the
+wave_compute='loop' oracle"): compute-vs-ship, gate-statistics placement
+and the per-pair ``loop`` wave oracle.
 """
 from __future__ import annotations
 
@@ -188,7 +195,7 @@ class ODMoEEngine:
                  transport=None, device="cuda", speculate: int = 1,
                  prefetch=None, residency=None, peek_horizon: int = 0,
                  packed_slots: bool = False, store=None, profiles=None, faults=None,
-                 compute_vs_ship=None, wave_compute: str = "grouped"):
+                 sched=None, compute_vs_ship=None, wave_compute: str = "grouped"):
         if cfg.is_encoder_decoder:
             raise ValueError("engine drives decoder-only models")
         if wave_compute not in ("grouped", "loop"):
@@ -215,10 +222,9 @@ class ODMoEEngine:
         if packed_slots and wave_compute != "grouped":
             # the loop oracle reads full-width slot dicts
             raise ValueError("packed_slots requires the grouped wave path")
-        if profiles is not None or faults is not None:
-            _not_ported("fleet profiles / faults", "fleet/, then serve/cluster.py")
         if compute_vs_ship is not None:
-            _not_ported("compute_vs_ship", "fleet/, then serve/cluster.py")
+            _not_ported("compute_vs_ship",
+                        "placement and compute-vs-ship, then serve/cluster.py")
         if wave_compute != "grouped":
             _not_ported(f"wave_compute={wave_compute!r}", "the wave_compute='loop' oracle")
         self.predictor_kind = predictor
@@ -236,10 +242,29 @@ class ODMoEEngine:
         # greedy_generate(transport=...).
         self.transport = resolve_policy(transport)
         self.moe_layers = moe_layer_indices(cfg)
-        g = group_size or max(cfg.top_k, 1)
-        if n_workers % g:
-            n_workers = g * max(1, n_workers // g)
-        self.sched = GroupSchedule(n_workers, g)
+        if sched is not None:
+            # a prebuilt schedule, whose fleet state the caller shares
+            if profiles is not None:
+                raise ValueError("pass profiles via the prebuilt sched")
+            self.sched = sched
+            n_workers = sched.n_workers
+        else:
+            g = group_size or max(cfg.top_k, 1)
+            if profiles is not None:
+                profiles = tuple(profiles)
+                n_workers = len(profiles)
+                if n_workers % g:
+                    raise ValueError("len(profiles) must be divisible by the group size")
+            elif n_workers % g:
+                n_workers = g * max(1, n_workers // g)
+            if profiles is not None or faults is not None:
+                # lazy: repro_torch.fleet imports repro_torch.core.schedule
+                from repro_torch.fleet import FleetSchedule, uniform_profiles
+                self.sched = FleetSchedule(n_workers, g,
+                                           profiles=profiles or uniform_profiles(n_workers))
+            else:
+                self.sched = GroupSchedule(n_workers, g)
+        self.faults = faults
         # a prebuilt ``store`` (engines over the same parameters may share
         # one) must carry this engine's transport policy, or slot contents
         # would diverge from its compute params
@@ -257,7 +282,8 @@ class ODMoEEngine:
         # cacheless synchronous engine (release evicts, loads fetch inline)
         self.residency = resolve_residency(residency)
         self.slots = WorkerSlots(self.store, n_workers, packed_resident=packed_slots,
-                                 residency=self.residency)
+                                 residency=self.residency,
+                                 profiles=getattr(self.sched, "profiles", None))
         executor = make_executor(prefetch)
         self.prefetch: Optional[PrefetchExecutor] = (
             None if executor is None
@@ -405,8 +431,10 @@ class ODMoEEngine:
         """One decode iteration.  ``preds`` maps layer -> (B,k) predicted
         experts for this iteration.  Non-MoE layers and each MoE layer's
         mixer + router run on the main node; expert FFNs run from worker
-        slots in ``_serve_and_compute``."""
+        slots in ``_serve_and_compute``.  Step-scoped faults fire first,
+        layer-scoped ones inside ``_serve_and_compute``."""
         cfg = self.cfg
+        self._apply_faults(step_idx)
         x = embed(token[:, None], self.params["embed"])
         x = self._decode_layers(x, cache_list, cache_list, pos, preds, step_idx, rec)
         logits = decode_logits(cfg, self.params, x)
@@ -470,6 +498,7 @@ class ODMoEEngine:
             rec.spec_len, rec.committed = 1, b
             return (tok[:, None], torch.ones((b,), dtype=torch.int32, device=tok.device),
                     cache_list, pos)
+        self._apply_faults(step_idx)
         x = embed(tokens.reshape(-1, 1), self.params["embed"])
         pos_rows = (pos[:, None] + torch.arange(s_w, dtype=pos.dtype,
                                                 device=pos.device)).reshape(-1)
@@ -492,6 +521,11 @@ class ODMoEEngine:
         for li in range(cfg.num_layers):
             cache_list[li] = select_commit(spec_caches[li], c, s_w)
         return verified, c, cache_list, pos + c
+
+    def _apply_faults(self, step_idx) -> None:
+        """Fire the step-scoped faults due by ``step_idx``."""
+        if self.faults is not None:
+            self.faults.apply(step_idx, self.sched.state, self.slots)
 
     def _resident_skip(self):
         """Prefetch skip predicate under residency: an expert still resident
@@ -541,7 +575,8 @@ class ODMoEEngine:
                            gates) -> Tuple[LayerRecord, torch.Tensor]:
         """Load the routed experts and compute their FFNs from worker
         slots, in waves when the batch needs more unique experts than the
-        fleet holds at once (each wave assigns distinct workers)."""
+        fleet holds at once (each wave assigns distinct workers: a
+        multi-slot worker computes one of its experts per wave)."""
         group = self.sched.group_of(moe_i)
         touched: set = set()
         rehits = 0
@@ -575,8 +610,12 @@ class ODMoEEngine:
                                    payload=payloads.get(e)):
                     shipped.append(e)
                 touched.add(w)
+        # mid-step faults: a worker dying here strands the predicted experts
+        # it just loaded, and the gate pass below reloads them on a survivor
+        if self.faults is not None:
+            self.faults.apply_layer(step_idx, moe_i, self.sched.state, self.slots)
         # 2) the gate result is ground truth: reload anything missing
-        order = self.sched.serving_order(moe_i)
+        order = self.sched.serving_order(moe_i)         # alive workers only
         needed = list(dict.fromkeys(int(e) for e in true.reshape(-1)))
         reloads = 0
         assignments: List[Tuple[int, int]] = []
@@ -597,14 +636,17 @@ class ODMoEEngine:
                     claimed.add(w)
             free = [w for w in order if w not in claimed]
             if not wave and not free:
-                raise RuntimeError(f"no workers left to serve layer {layer}")
+                raise RuntimeError(f"no alive workers left to serve layer {layer}")
             # assign the wave's misses first, fetch them together through
             # the executor, then commit in assignment order: the worker
             # choices and event order of the synchronous path
             loads: List[Tuple[int, int]] = []
             for e in remaining:
-                if e in wave or self.slots.worker_with(layer, e) is not None:
+                if e in wave:
                     continue
+                if self.slots.worker_with(layer, e) is not None:
+                    continue        # resident on a busy multi-slot worker: it
+                    #                 computes in the next wave, no reload
                 if not free:
                     break                                 # overflow -> next wave
                 loads.append((e, free.pop(0)))
@@ -695,8 +737,8 @@ class ODMoEEngine:
                   if self.shadow is not None else 0)
         # peak, not steady state: while a shard dequantizes on arrival its
         # packed buffer and the full-width slot are both live
-        fleet_bytes = self.sched.n_workers * (self.slots.slot_unit_bytes()
-                                              + self.slots.transient_packed_bytes())
+        fleet_bytes = (sum(self.slots.capacity) * self.slots.slot_unit_bytes()
+                       + self.sched.n_workers * self.slots.transient_packed_bytes())
         transport_max = max((self.store.packed_bytes(li, e) for li in self.moe_layers
                              for e in range(self.cfg.num_experts)), default=0)
         return {

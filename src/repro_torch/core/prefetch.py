@@ -19,7 +19,10 @@ Every load splits into a *fetch* and a *commit*:
 Scheduling state changes only at commit points, so tokens, the event
 log and byte accounting are identical under every executor and every
 completion order: an executor moves WHEN bytes are fetched, never what
-computes or what is recorded.  ``ChaosExecutor`` drives adversarial
+computes or what is recorded.  The same holds under fleet faults: a
+fetched payload names no worker, and its commit places it on a worker
+alive at that moment, where the synchronous engine would load it, so no
+payload is ever committed onto a dead worker.  ``ChaosExecutor`` drives adversarial
 schedules from one ``random.Random(seed)``, the same schedule as the JAX
 package's for the same seed and call sequence.
 

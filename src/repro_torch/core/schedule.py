@@ -5,7 +5,8 @@ Workers are split into ``n_workers / group_size`` groups.  MoE layer
 ``i mod n_groups``; inside a group the top-k routed experts map one to
 one onto the group's workers.  ``t_maxload`` is Eq. (1): the longest an
 expert load may take without stalling compute.  Plain Python, copied
-from ``repro.core.schedule`` (the fleet-aware schedule waits).
+from ``repro.core.schedule``; ``repro_torch.fleet.FleetSchedule`` extends
+it to dead workers, link speeds and slot capacities.
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@
 packed once in the transport policy's wire format — in pinned host
 memory when the model lives on the card (the paper's CPU-DRAM tier).
 ``WorkerSlots`` models the worker fleet: each worker owns one device
-expert slot.  ``load`` really copies the packed shard to the device
-(``.to(device, non_blocking=True)`` from pinned memory), so engine
+expert slot, or ``capacity`` of them under a fleet profile
+(``repro_torch.fleet``).  ``load`` really copies the packed shard to the
+device (``.to(device, non_blocking=True)`` from pinned memory), so engine
 compute consumes slot contents; eviction drops the slot — there is no
 cache.  A slot holds one of two things: by default the full-width
 weights, dequantized on arrival; with ``packed_resident=True`` a
@@ -15,23 +16,25 @@ fewer slot bytes at int8/nf4).  Every load is logged as a ``LoadEvent``
 with its exact packed payload; ``bytes_moved`` sums them.
 
 Stats (as in ``repro.core.store``): ``evictions`` counts every resident
-displaced, by a capacity overwrite or an explicit ``evict``; ``hits``
-counts loads that found their expert already resident.
+displaced on a live worker, by a capacity overwrite or an explicit
+``evict``; ``hits`` counts loads that found their expert already
+resident; ``failures`` / ``recoveries`` count workers lost and rejoined,
+and ``failure_drops`` the residents a failure lost (not evictions).
 
 Opportunistic residency (``repro_torch.core.prefetch``): ``release``
-marks a worker's resident *released* instead of evicting it; it keeps
-its slot, and a later load of the same expert re-hits in place (no
-event, zero bytes).  Only a full worker taking a new load evicts, the
+marks a worker's residents *released* instead of evicting them; they
+keep their slots, and a later load of the same expert re-hits in place
+(no event, zero bytes).  Only a full worker taking a new load evicts, the
 residency policy naming the victim among released residents.  Its
 counters live in ``residency_stats``, beside ``stats``.  A load may
 commit a payload fetched earlier (``FetchedShard``) instead of fetching
-inline.  Multi-slot profiles and worker failure wait (ROADMAP.md
-queue 1, "fleet/, then serve/cluster.py").
+inline.  A failed worker (``fail``) is dead until ``recover``: it holds
+nothing, takes no load and serves no wave.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +55,7 @@ class LoadEvent:
     bytes: int              # packed transport payload that crossed the link
     scheme: str = "fp32"    # transport precision this load shipped at
     requests: Tuple[int, ...] = ()   # serving: request ids sharing this load
+    profile: Optional[object] = None  # fleet: the worker's WorkerProfile
 
 
 @dataclass(frozen=True)
@@ -198,32 +202,50 @@ class ExpertStore:
 
 
 class WorkerSlots:
-    """``n_workers`` single-expert device slots with load/evict accounting.
-    ``packed_resident=True`` keeps each slot's shard in wire format
-    (``ExpertStore.device_shard``) instead of dequantizing on arrival.
-    ``residency`` (a ``ResidencyPolicy``) turns ``release`` into
-    opportunistic residency; without one it evicts (cacheless)."""
+    """``n_workers`` sets of device expert slots with load, evict and
+    failure accounting.  ``profiles`` (``repro_torch.fleet.WorkerProfile``)
+    give each worker its slot capacity and tag its load events; without
+    them every worker has the paper's one slot.  ``packed_resident=True``
+    keeps each slot's shard in wire format (``ExpertStore.device_shard``)
+    instead of dequantizing on arrival.  ``residency`` (a
+    ``ResidencyPolicy``) turns ``release`` into opportunistic residency;
+    without one it evicts (cacheless)."""
 
     def __init__(self, store: ExpertStore, n_workers: int, packed_resident: bool = False,
-                 residency=None):
+                 residency=None, profiles: Optional[Sequence] = None):
         self.store = store
         self.n_workers = n_workers
         self.packed_resident = packed_resident
         self.residency = residency
-        # per worker: the resident (layer, expert), its device weights, and
-        # whether it is released (kept, free for a re-hit or displacement)
-        self.resident: List[Optional[Tuple[int, int]]] = [None] * n_workers
-        self._data: List[Optional[dict]] = [None] * n_workers
-        self._released: List[bool] = [False] * n_workers
+        self.profiles = list(profiles) if profiles else None
+        if self.profiles is not None and len(self.profiles) != n_workers:
+            raise ValueError("one profile per worker required")
+        self.capacity: List[int] = ([p.capacity for p in self.profiles] if self.profiles
+                                    else [1] * n_workers)
+        self.alive: List[bool] = [True] * n_workers
+        # per worker: its occupied slots' keys, oldest first (a full worker
+        # overwrites the oldest unless the residency policy names a released
+        # victim), their device contents, and the released ones (kept, free
+        # for a re-hit or displacement)
+        self._occupied: List[List[Tuple[int, int]]] = [[] for _ in range(n_workers)]
+        self._data: List[Dict[Tuple[int, int], object]] = [{} for _ in range(n_workers)]
+        self._released: List[set] = [set() for _ in range(n_workers)]
         self.events: List[LoadEvent] = []
-        self.stats = {"loads": 0, "predicted_loads": 0, "reloads": 0,
-                      "hits": 0, "evictions": 0}
+        self.stats = {"loads": 0, "predicted_loads": 0, "reloads": 0, "hits": 0,
+                      "evictions": 0, "failures": 0, "recoveries": 0, "failure_drops": 0}
         self.bytes_moved: int = 0
         # ``rehit_bytes_saved``: the packed payload re-hits did not move;
         # ``evicted_bytes``: the slot bytes every eviction freed
         self.residency_stats = {"released": 0, "rehits": 0, "rehit_bytes_saved": 0,
                                 "displaced": 0, "evicted_bytes": 0}
         self._request_context: Tuple[int, ...] = ()
+
+    @property
+    def resident(self) -> List[Optional[object]]:
+        """Per worker: ``None`` when empty, the ``(layer, expert)`` when one
+        expert is resident, else a tuple of them, oldest first."""
+        return [None if not occ else occ[0] if len(occ) == 1 else tuple(occ)
+                for occ in self._occupied]
 
     def set_request_context(self, request_ids) -> None:
         """Tag the following load events with the composed batch's request
@@ -233,36 +255,41 @@ class WorkerSlots:
 
     def load(self, token: int, layer: int, expert: int, worker: int,
              predicted: bool, payload: Optional[FetchedShard] = None) -> bool:
-        """Ship (layer, expert)'s packed shard into ``worker``'s slot.  A
-        full worker evicts its resident: the residency policy's victim
-        when the resident is released, else the resident itself (the
+        """Ship (layer, expert)'s packed shard into a slot of ``worker``.  A
+        full worker evicts a resident: the residency policy's victim among
+        its released residents when there is one, else the oldest (the
         cacheless overwrite); either is an eviction.  ``payload`` is a
         fetch made earlier by the prefetch executor: the commit uses it
         instead of fetching inline and accounts the same packed bytes.
         Returns ``True`` when the load shipped, ``False`` on a hit or a
-        re-hit."""
+        re-hit.  A dead worker takes no load (``RuntimeError``)."""
+        if not self.alive[worker]:
+            raise RuntimeError(f"load onto dead worker {worker}")
         key = (layer, expert)
-        if self.resident[worker] == key:
-            if self._released[worker]:
-                self._reactivate(worker)           # residency re-hit
+        if key in self._data[worker]:
+            if key in self._released[worker]:
+                self._reactivate(worker, key)      # residency re-hit
             else:
                 self.stats["hits"] += 1
             return False
-        if self.resident[worker] is not None:
-            victim = self.resident[worker]
-            if self.residency is not None and self._released[worker]:
-                victim = self.residency.victim([victim])
-                self.residency_stats["displaced"] += 1
-            self._drop(worker, victim)
-            self.stats["evictions"] += 1
+        if len(self._occupied[worker]) >= self.capacity[worker]:
+            victim = None
+            if self.residency is not None:
+                released = [k for k in self._occupied[worker] if k in self._released[worker]]
+                if released:
+                    victim = self.residency.victim(released)
+                    self.residency_stats["displaced"] += 1
+            if victim is None:
+                victim = self._occupied[worker][0]
+            self._evict_key(worker, victim)
         if payload is not None:
             data = payload.commit(self.store.device)
         elif self.packed_resident:
             data = self.store.device_shard(layer, expert)
         else:
             data = self.store.unpack_shard(layer, expert)
-        self._data[worker] = data
-        self.resident[worker] = key
+        self._data[worker][key] = data
+        self._occupied[worker].append(key)
         self.stats["loads"] += 1
         self.stats["predicted_loads" if predicted else "reloads"] += 1
         nbytes = self.store.packed_bytes(layer, expert)
@@ -271,36 +298,45 @@ class WorkerSlots:
             self.residency.note(key)
         self.events.append(LoadEvent(token, layer, expert, worker, predicted, nbytes,
                                      self.store.scheme_of(layer, expert),
-                                     requests=self._request_context))
+                                     requests=self._request_context,
+                                     profile=self.profiles[worker] if self.profiles else None))
         return True
 
     def _drop(self, worker: int, key: Tuple[int, int]) -> None:
-        """Free ``worker``'s slot, which holds ``key``."""
-        self.residency_stats["evicted_bytes"] += self._resident_nbytes(key)
+        """Free ``key``'s slot on ``worker``: the one path by which slot
+        tensors are released, for an eviction and for a failure alike.  A
+        tensor filled on the prefetch side stream was recorded on the
+        compute stream at commit (``FetchedShard.commit``), so the caching
+        allocator does not hand its memory back while a queued kernel
+        still reads it."""
         if self.residency is not None:
             self.residency.forget(key)
-        self.resident[worker] = None
-        self._data[worker] = None
-        self._released[worker] = False
+        self._occupied[worker].remove(key)
+        self._released[worker].discard(key)
+        del self._data[worker][key]
+
+    def _evict_key(self, worker: int, key: Tuple[int, int]) -> None:
+        self.stats["evictions"] += 1
+        self.residency_stats["evicted_bytes"] += self._resident_nbytes(key)
+        self._drop(worker, key)
 
     # ---------------------------------------------------------- residency
-    def _reactivate(self, worker: int) -> None:
+    def _reactivate(self, worker: int, key: Tuple[int, int]) -> None:
         """A released resident is used again: un-release it in place.  The
         re-hit saved exactly the packed payload a reload would move."""
-        key = self.resident[worker]
-        self._released[worker] = False
+        self._released[worker].discard(key)
         self.residency_stats["rehits"] += 1
         self.residency_stats["rehit_bytes_saved"] += self.store.packed_bytes(*key)
         if self.residency is not None:
             self.residency.note(key)
 
     def reactivate(self, layer: int, expert: int) -> Optional[int]:
-        """Claim a resident copy of (layer, expert) anywhere in the fleet:
-        a re-hit when it was released, a plain claim when it is active.
-        Returns the worker, or ``None`` when nothing holds it."""
+        """Claim a resident copy of (layer, expert) anywhere in the alive
+        fleet: a re-hit when it was released, a plain claim when it is
+        active.  Returns the worker, or ``None`` when nothing holds it."""
         w = self.worker_with(layer, expert)
-        if w is not None and self._released[w]:
-            self._reactivate(w)
+        if w is not None:
+            self.claim_resident(layer, expert, w)
         return w
 
     def claim_resident(self, layer: int, expert: int, worker: int) -> bool:
@@ -308,23 +344,23 @@ class WorkerSlots:
         it when released (a reload avoided).  Returns whether that
         re-hit happened."""
         if self.is_released(worker, layer, expert):
-            self._reactivate(worker)
+            self._reactivate(worker, (layer, expert))
             return True
         return False
 
     def is_released(self, worker: int, layer: int, expert: int) -> bool:
-        return self._released[worker] and self.resident[worker] == (layer, expert)
+        return (layer, expert) in self._released[worker]
 
     def release(self, worker: int) -> None:
-        """Opportunistic residency: mark the worker's resident released; it
-        stays in its slot until displaced and a matching load re-hits.
-        Without a policy this is ``evict`` (cacheless)."""
+        """Opportunistic residency: mark the worker's residents released;
+        they keep their slots until displaced, and a matching load
+        re-hits.  Without a policy this is ``evict`` (cacheless)."""
         if self.residency is None:
             self.evict(worker)
             return
-        if self.resident[worker] is not None and not self._released[worker]:
-            self._released[worker] = True
-            self.residency_stats["released"] += 1
+        newly = [k for k in self._occupied[worker] if k not in self._released[worker]]
+        self.residency_stats["released"] += len(newly)
+        self._released[worker].update(newly)
 
     def observe_gates(self, layer: int, true, gates) -> None:
         """Feed the router's realized routing to the residency policy (gate
@@ -349,15 +385,21 @@ class WorkerSlots:
         return self.store.expert_bytes
 
     def resident_slot_bytes(self, worker: int) -> int:
-        """Device bytes ``worker``'s slot holds (active or released)."""
-        key = self.resident[worker]
-        return 0 if key is None else self._resident_nbytes(key)
+        """Device bytes ``worker``'s occupied slots hold (active or
+        released)."""
+        return sum(self._resident_nbytes(k) for k in self._occupied[worker])
 
-    def slot(self, worker: int, layer: int, expert: int) -> dict:
-        if self.resident[worker] != (layer, expert):
+    def slot(self, worker: int, layer: int, expert: int):
+        """The device contents of (layer, expert) on ``worker``, which must
+        be alive and hold it: the slot is selected by key, so a multi-slot
+        worker gives the right expert."""
+        if not self.alive[worker]:
+            raise RuntimeError(f"worker {worker} is dead")
+        data = self._data[worker].get((layer, expert))
+        if data is None:
             raise RuntimeError(f"expert {expert} of layer {layer} is not "
                                f"resident on worker {worker}")
-        return self._data[worker]
+        return data
 
     def gather_stack(self, layer: int, wave: Dict[int, int]) -> Tuple[List[int], Dict]:
         """Stack one wave's resident expert weights for the grouped FFN:
@@ -389,16 +431,38 @@ class WorkerSlots:
         return experts, groups
 
     def worker_with(self, layer: int, expert: int) -> Optional[int]:
+        """The first alive worker holding (layer, expert), or ``None``."""
         key = (layer, expert)
-        return next((w for w in range(self.n_workers) if self.resident[w] == key),
-                    None)
+        return next((w for w in range(self.n_workers)
+                     if self.alive[w] and key in self._data[w]), None)
 
     def evict(self, worker: int) -> None:
-        """Prompt eviction after the expert computation (cacheless rule)."""
-        if self.resident[worker] is not None:
-            self.stats["evictions"] += 1
-            self._drop(worker, self.resident[worker])
+        """Prompt eviction after the expert computation (cacheless rule):
+        drop everything resident on ``worker``."""
+        for key in list(self._occupied[worker]):
+            self._evict_key(worker, key)
 
+    # ------------------------------------------------------------ failures
+    def fail(self, worker: int) -> None:
+        """The worker's device is gone: mark it dead and lose its residents
+        (``failure_drops``, not evictions); what it held reloads elsewhere
+        on a miss."""
+        if not self.alive[worker]:
+            return
+        self.alive[worker] = False
+        self.stats["failures"] += 1
+        self.stats["failure_drops"] += len(self._occupied[worker])
+        for key in list(self._occupied[worker]):
+            self._drop(worker, key)
+
+    def recover(self, worker: int) -> None:
+        """The worker rejoins with empty slots."""
+        if self.alive[worker]:
+            return
+        self.alive[worker] = True
+        self.stats["recoveries"] += 1
+
+    # -------------------------------------------------------------- memory
     def transient_packed_bytes(self) -> int:
         """Largest packed shard live on a worker beside its full-width
         slot while it dequantizes on arrival.  fp32 shards alias, and
@@ -422,5 +486,6 @@ class WorkerSlots:
 
     def device_bytes_per_worker(self) -> int:
         """Peak device bytes per worker, the paper's "<1 GB per worker"
-        quantity: one slot plus the transient packed buffer."""
-        return self.slot_unit_bytes() + self.transient_packed_bytes()
+        quantity: the slots of the fleet's largest capacity plus the
+        transient packed buffer."""
+        return self.slot_unit_bytes() * max(self.capacity) + self.transient_packed_bytes()

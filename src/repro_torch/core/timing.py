@@ -16,8 +16,11 @@ and KV swaps between decode steps; ``ServingTimings`` turns the
 per-request timestamps into TTFT/TPOT/throughput.  A speculative verify
 wave is priced by its width (wider activation hops, and the shadow's
 extra draft passes before its predictions).  ``RTX3090_EDGE`` is
-the paper's edge testbed.  Counterpart: ``repro.core.timing``; the
-offload-cache baselines and the fleet and fault state wait (ROADMAP.md
+the paper's edge testbed.  Over a ``repro_torch.fleet.FleetSchedule``
+each load is priced on its worker's own (throttled) link, dead workers
+drop out of the orders, and ``simulate_odmoe(..., faults=)`` replays a
+fault script.  Counterpart: ``repro.core.timing``; the offload-cache
+baselines and the pricing of main-node-hosted experts wait (ROADMAP.md
 queue 1).
 """
 from __future__ import annotations
@@ -112,10 +115,17 @@ def degraded_tpot_report(per_token_s: List[float], alive_workers: List[int],
 class ODMoETimings:
     per_token_s: List[float]
     io_stall_s: List[float]
+    # alive workers after each step's faults (``simulate_odmoe`` fills it:
+    # the whole fleet throughout when the schedule has no fleet state)
+    alive_workers: Optional[List[int]] = None
 
     @property
     def tokens_per_s(self) -> float:
         return 1.0 / float(np.mean(self.per_token_s))
+
+    def degraded_report(self, n_workers: int) -> Dict[str, float]:
+        alive = self.alive_workers or [n_workers] * len(self.per_token_s)
+        return degraded_tpot_report(self.per_token_s, alive, n_workers)
 
 
 class DecodeClock:
@@ -125,10 +135,11 @@ class DecodeClock:
     loads for layer l+G-1 overlap the compute of layer l; mispredicted
     experts reload only after the main node's gate result.
 
-    Loads are priced by each expert's PACKED bytes under ``transport``.
-    Worker compute streams full-width weights (dequantize on arrival),
-    or with ``packed_compute`` the packed ones (packed-resident slots and
-    the in-register-dequant kernel)."""
+    Loads are priced by each expert's PACKED bytes under ``transport``,
+    over the loading worker's link (``t_load_for``).  Worker compute
+    streams full-width weights (dequantize on arrival), or with
+    ``packed_compute`` the packed ones (packed-resident slots and the
+    in-register-dequant kernel)."""
 
     def __init__(self, cfg: ModelConfig, sched: GroupSchedule, profile: HardwareProfile,
                  shadow_scheme: str = "int8", predictor: str = "sep", transport=None,
@@ -157,6 +168,8 @@ class DecodeClock:
         self.t_load = profile.t_load(default_packed)
         self.t_head = profile.t_stream(lb["embed"])
         self._expert_bytes = default_packed
+        # a FleetSchedule's shared liveness and throttle state
+        self._fleet_state = getattr(sched, "state", None)
         # the shadow runs the whole (quantized) model on its own node
         qf = {"fp16": 0.5, "int8": 0.25, "nf4": 0.125}.get(shadow_scheme, 1.0)
         shadow_active = cfg.active_param_count() * wb * qf
@@ -179,10 +192,22 @@ class DecodeClock:
             return self._expert_bytes
         return self._scheme_bytes(self.transport.scheme_for(layer, int(expert)))
 
+    def t_load_for(self, worker: int, nbytes: Optional[float] = None) -> float:
+        """One load of ``nbytes`` packed payload (default: one expert at the
+        policy's default scheme) on ``worker``'s link: the fleet schedule's
+        profiled bandwidth times its throttle, with this hardware profile's
+        PCIe rate for unpinned links; a base schedule prices every link at
+        PCIe."""
+        nbytes = self._expert_bytes if nbytes is None else nbytes
+        t_load_s = getattr(self.sched, "t_load_s", None)
+        if t_load_s is None:
+            return self.profile.t_load(nbytes)
+        return t_load_s(worker, nbytes, default_gbps=self.profile.pcie_gbps)
+
     def alive_workers(self) -> int:
-        """Workers alive after the last step: the whole fleet (faults are
-        not ported)."""
-        return self.sched.n_workers
+        """Workers alive now (the whole fleet without a fleet state)."""
+        return (self._fleet_state.n_alive if self._fleet_state is not None
+                else self.sched.n_workers)
 
     def advance_to(self, t: float) -> None:
         """Idle until ``t`` (waiting for the next arrival)."""
@@ -255,6 +280,8 @@ class DecodeClock:
             t += self.t_router                 # the gate runs on the main node
             workers = sched.active_workers_of_group(moe_i)
             targets = sched.load_targets(moe_i)
+            if not targets:                    # the whole fleet is dead
+                raise RuntimeError("no alive workers in the fleet")
             load_done = 0.0
             if (lr is not None and lr.predicted is not None
                     and lr.shipped is not None):
@@ -264,7 +291,7 @@ class DecodeClock:
                 for j, e in enumerate(lr.shipped):
                     w = targets[j % len(targets)]
                     ls = max(pred_avail(li, t - self.t_router), worker_free[w])
-                    worker_free[w] = ls + profile.t_load(self._bytes_for(li, int(e)))
+                    worker_free[w] = ls + self.t_load_for(w, self._bytes_for(li, int(e)))
                     load_done = max(load_done, worker_free[w])
             elif lr is not None and lr.predicted is not None:
                 # predicted loads, issued once the prediction and the worker
@@ -276,7 +303,7 @@ class DecodeClock:
                     w = targets[j % len(targets)]
                     e = pred_u[j] if j < len(pred_u) else None
                     ls = max(pred_avail(li, t - self.t_router), worker_free[w])
-                    worker_free[w] = ls + profile.t_load(self._bytes_for(li, e))
+                    worker_free[w] = ls + self.t_load_for(w, self._bytes_for(li, e))
                     load_done = max(load_done, worker_free[w])
             else:
                 # no prediction: load after the gate result
@@ -287,10 +314,11 @@ class DecodeClock:
                     w = targets[j % len(targets)]
                     e = true_u[j] if j < len(true_u) else None
                     ls = max(t, worker_free[w])
-                    worker_free[w] = ls + profile.t_load(self._bytes_for(li, e))
+                    worker_free[w] = ls + self.t_load_for(w, self._bytes_for(li, e))
                     load_done = max(load_done, worker_free[w])
-            # mispredictions reload after the gate result, round-robin over
-            # the engine's fleet order, missed experts first
+            # mispredictions (and the predictions a fault stranded) reload
+            # after the gate result, round-robin over the engine's fleet
+            # order, missed experts first
             if lr is not None and lr.predicted is not None and lr.reloads:
                 pred_set = {int(e) for e in lr.predicted.reshape(-1)}
                 true_set = [int(e) for e in dict.fromkeys(lr.true.reshape(-1).tolist())]
@@ -300,7 +328,7 @@ class DecodeClock:
                     w = targets[i % len(targets)]
                     e = pool[i] if i < len(pool) else None
                     ls = max(t, worker_free[w])
-                    worker_free[w] = ls + profile.t_load(self._bytes_for(li, e))
+                    worker_free[w] = ls + self.t_load_for(w, self._bytes_for(li, e))
                     load_done = max(load_done, worker_free[w])
             ready = t + profile.t_lan(spec * self.emb)   # the wave's embeddings, one message
             ec_start = max(ready, load_done)
@@ -314,19 +342,35 @@ class DecodeClock:
 
 
 def simulate_odmoe(cfg: ModelConfig, trace, sched: GroupSchedule, profile: HardwareProfile,
-                   shadow_scheme: str = "int8", predictor: str = "sep", transport=None,
-                   packed_compute: bool = False) -> ODMoETimings:
+                   shadow_scheme: str = "int8", predictor: str = "sep", faults=None,
+                   transport=None, packed_compute: bool = False) -> ODMoETimings:
     """Replay an engine trace through the Fig. 2 pipeline (``DecodeClock``).
-    ``transport`` prices every load by its packed bytes; ``packed_compute``
-    also prices worker compute at the packed stream."""
+    ``faults`` (a ``repro_torch.fleet.FaultInjector`` over a
+    ``FleetSchedule``) fires each record's due events before its step, so
+    kills and throttles slow the replayed clock.  The replay starts from
+    scratch: the injector and the schedule's fleet state are reset first,
+    so the engine run that consumed the same script replays directly, and
+    the state is reset again afterwards.  ``transport`` prices every load
+    by its packed bytes; ``packed_compute`` also prices worker compute at
+    the packed stream."""
     clock = DecodeClock(cfg, sched, profile, shadow_scheme, predictor,
                         transport=transport, packed_compute=packed_compute)
-    per_token, stalls = [], []
-    for rec in trace.records:
-        d, s = clock.step(rec)
-        per_token.append(d)
-        stalls.append(s)
-    return ODMoETimings(per_token, stalls)
+    if faults is not None:
+        faults.reset()
+        sched.state.reset()
+    per_token, stalls, alive = [], [], []
+    try:
+        for rec in trace.records:
+            if faults is not None:
+                faults.apply_step_all(rec.index, sched.state)
+            d, s = clock.step(rec)
+            per_token.append(d)
+            stalls.append(s)
+            alive.append(clock.alive_workers())
+    finally:
+        if faults is not None:
+            sched.state.reset()     # leak no end state into later replays
+    return ODMoETimings(per_token, stalls, alive)
 
 
 def simulate_cached(cfg: ModelConfig, profile: HardwareProfile) -> float:
@@ -467,12 +511,12 @@ class ServingTimings:
 
 
 def node_memory_report(engine, kv_pool=None, budget_bytes: Optional[int] = None) -> Dict:
-    """Per-node device bytes under the OD-MoE budget: the expert slot of a
-    one-slot worker, the transient packed buffer live while a shard
-    dequantizes on arrival, and the paged KV pool (zero when serving runs
-    dense).  ``budget_bytes`` adds a pass/fail against a budget."""
+    """Per-node device bytes under the OD-MoE budget: the expert slots of
+    the fleet's largest worker, the transient packed buffer live while a
+    shard dequantizes on arrival, and the paged KV pool (zero when serving
+    runs dense).  ``budget_bytes`` adds a pass/fail against a budget."""
     slots = engine.slots
-    slot_bytes = slots.slot_unit_bytes()
+    slot_bytes = slots.slot_unit_bytes() * max(slots.capacity)
     transient = slots.transient_packed_bytes()
     kv_bytes = kv_pool.pool_bytes() if kv_pool is not None else 0
     rep = {"expert_slot_bytes": slot_bytes, "transient_packed_bytes": transient,

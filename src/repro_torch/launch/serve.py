@@ -26,8 +26,10 @@ worker slots and computes them with the in-register-dequant kernel;
 ``--token-period`` / ``--kv-period`` set how often the SEP shadow aligns
 its token and KV with the main model; ``--speculate k`` decodes in
 shadow-drafted waves of k positions and prints the acceptance.  Cluster
-mode (``--replicas > 1``) waits for ``fleet/`` (ROADMAP.md queue 1,
-"fleet/, then serve/cluster.py").
+mode (``--replicas > 1``) waits for placement and compute-vs-ship
+(ROADMAP.md queue 1, "placement and compute-vs-ship, then
+serve/cluster.py").  As in the JAX package, the command line has no
+fault flags: fleet profiles and fault scripts are engine options.
 """
 from __future__ import annotations
 
@@ -307,9 +309,9 @@ def serve_traffic(cfg, params, args, **engine_options) -> dict:
     pool (``build_peak_bytes``) and while serving (``serving_peak_bytes``);
     both are None on the host."""
     if args.replicas > 1:
-        raise NotImplementedError("cluster serving (--replicas > 1) is not ported yet: "
-                                  "it waits for fleet/ (ROADMAP.md queue 1, \"fleet/, "
-                                  "then serve/cluster.py\")")
+        raise NotImplementedError("cluster serving (--replicas > 1) is not ported yet "
+                                  "(ROADMAP.md queue 1: placement and compute-vs-ship, "
+                                  "then serve/cluster.py)")
     device = params["embed"]["table"].device
     transport = build_transport(cfg, params, args)
     launches0 = _launches()

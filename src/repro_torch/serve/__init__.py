@@ -1,5 +1,6 @@
 """Continuous-batching serving over the cacheless OD-MoE engine
-(``repro.serve`` without its cluster router, which waits for ``fleet/``):
+(``repro.serve`` without its cluster router, which waits for placement
+and compute-vs-ship, ROADMAP.md queue 1):
 
   * ``request``: ``Request`` / ``RequestState`` / ``RequestQueue`` and the
     ``make_traffic`` mix: arrival, admission, per-request decode and

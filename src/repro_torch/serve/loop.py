@@ -41,9 +41,17 @@ on B or on the cache window.
 An engine built with ``prefetch`` and ``residency`` serves the same
 tokens and events; ``ServeResult.prefetch_stats`` carries its
 ``prefetch_report()``, and ``ServeResult.spec_stats`` the acceptance of a
-speculating engine.  Not ported: fault injection (it raises at the
-engine) and the cluster router, which waits for ``fleet/`` (ROADMAP.md
-queue 1, "fleet/, then serve/cluster.py").
+speculating engine.
+
+Serving survives fleet faults: when the engine carries a
+``repro_torch.fleet.FaultInjector``, kills, recoveries and throttles fire
+at the global composed-step index (``StepRecord.step``), every request
+still equals its solo decode, ``StepRecord.alive_workers`` records the
+fleet's liveness after each step's faults, and
+``ServeResult.degraded_report()`` splits the modelled step times into
+healthy- and degraded-fleet steps.  Not ported: the cluster router, which
+waits for placement and compute-vs-ship (ROADMAP.md queue 1, "placement
+and compute-vs-ship, then serve/cluster.py").
 """
 from __future__ import annotations
 
@@ -115,7 +123,7 @@ class StepRecord:
     start_s: float
     duration_s: float
     stall_s: float
-    alive_workers: int = -1      # fleet liveness after this step
+    alive_workers: int = -1      # fleet liveness after this step's faults
     kv_pages_used: int = -1      # pool occupancy after this step (paged)
     queue_counts: Optional[Dict[str, int]] = None
     wall_s: float = 0.0          # measured: host clock ending in a device sync

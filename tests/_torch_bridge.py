@@ -77,3 +77,26 @@ def step_fields(step):
     return (step.step, list(step.request_ids), step.alive_workers, step.kv_pages_used,
             step.queue_counts, rec.index, rec.aligned_token, rec.aligned_kv, rec.spec_len,
             rec.committed, layers)
+
+
+def torch_profiles(profiles):
+    """JAX ``repro.fleet.WorkerProfile``s as the port's, field for field."""
+    from repro_torch.fleet import WorkerProfile
+    return tuple(WorkerProfile(p.worker, p.link_gbps, p.capacity) for p in profiles)
+
+
+def torch_faults(events):
+    """A JAX fault script (``repro.fleet.FaultEvent``s) as the port's."""
+    from repro_torch.fleet import FaultEvent
+    return [FaultEvent(e.step, e.worker, e.kind, factor=e.factor, moe_index=e.moe_index)
+            for e in events]
+
+
+def profile_fields(profile):
+    """A ``WorkerProfile`` of either package (or None) as plain values."""
+    return None if profile is None else (profile.worker, profile.link_gbps, profile.capacity)
+
+
+def fault_fields(events):
+    """Fault events of either package as plain tuples."""
+    return [(e.step, e.worker, e.kind, e.factor, e.moe_index) for e in events]

@@ -3,9 +3,10 @@ packed-weight twin, flash-decode attention, the SSD inter-chunk scan and
 the w8a16 matmul against their plain PyTorch versions (and the two FFNs
 against each other), their invariances and refusals, the engine on the
 card (full-width and packed-resident slots, with prefetch on a side
-stream and residency), speculative verify waves and decoding, and the
+stream and residency), speculative verify waves and decoding, the
 serving loop on the card against solo decoding, attention-only, hybrid
-and speculative.
+and speculative, and the fleet: multi-slot workers' waves through both
+FFN kernels and engines under fault scripts, with and without prefetch.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -17,7 +18,9 @@ import dataclasses
 import pytest
 import torch
 
-from repro_torch.core import AlignmentPolicy, ChaosExecutor, ODMoEEngine, spec_attn_decode
+from repro_torch.core import (AlignmentPolicy, ChaosExecutor, ExpertStore, ODMoEEngine,
+                              WorkerSlots, spec_attn_decode)
+from repro_torch.fleet import FaultEvent, FaultInjector, WorkerProfile
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_kernel, flash_decode_ref
 from repro_torch.kernels.flash_decode import kernel as flash_lib
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_kernel, int8_matmul_ref
@@ -966,3 +969,106 @@ def test_speculative_paged_serving_on_the_card_equals_solo(dev):
                                               [None, :]}, r.max_new_tokens)
         assert solo[0].cpu().tolist() == res.outputs[r.rid].tolist(), r.rid
         assert res.spec_stats["per_request"][r.rid]["committed"] == r.max_new_tokens - 1
+
+
+# ------------------------------------------------------------------ fleet
+FLEET = dataclasses.replace(SPEC, name="t-fleet", d_expert=128)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_two_slot_worker_waves_select_their_expert_through_the_kernels(dev, packed):
+    """A worker holding two experts serves one of them per wave: the
+    gathered stack is the store's copy of that expert, selected by (layer,
+    expert), and the kernel's output on it equals, bit for bit, its output
+    on the store's weights, within tolerance of the plain version."""
+    params = init_params(FLEET, seed=3, device=dev)
+    store = ExpertStore(FLEET, params, "int8" if packed else None)
+    slots = WorkerSlots(store, 2, packed_resident=packed,
+                        profiles=(WorkerProfile(0, capacity=2), WorkerProfile(1)))
+    li = store.moe_layers[1]
+    for e, w in ((5, 0), (2, 0), (7, 1)):
+        slots.load(0, li, e, w, predicted=True)
+    assert slots.resident == [((li, 5), (li, 2)), (li, 7)]
+    g = torch.Generator(device=dev).manual_seed(9)
+    for wave in ({2: 0, 7: 1}, {5: 0, 7: 1}, {5: 0}, {2: 0}):
+        x = torch.randn((len(wave), 3, FLEET.d_model), generator=g, device=dev)
+        if packed:
+            experts, groups = slots.gather_stack_packed(li, wave)
+            ((scheme, eids, parts),) = groups
+            want = {n: tuple(torch.stack([store.device_shard(li, e).parts[n][j] for e in eids])
+                             for j in range(len(parts[n]))) for n in NAMES}
+            for n in NAMES:
+                assert all(torch.equal(a, b) for a, b in zip(parts[n], want[n])), (wave, n)
+            before = moe_ffn_packed_kernel.launches
+            got = moe_ffn_packed(x, parts, scheme=scheme)
+            assert moe_ffn_packed_kernel.launches == before + 1
+            assert torch.equal(got, moe_ffn_packed_kernel(x, want, scheme=scheme))
+            plain = moe_ffn_packed_ref(x, want, scheme=scheme)
+        else:
+            experts, stacked = slots.gather_stack(li, wave)
+            shards = [store.unpack_shard(li, e) for e in experts]
+            want = [torch.stack([sh[n] for sh in shards]) for n in NAMES]
+            for n, w in zip(NAMES, want):
+                assert torch.equal(stacked[n], w), (wave, n)
+            before = moe_ffn_kernel.launches
+            got = moe_ffn(x, *(stacked[n] for n in NAMES))
+            assert moe_ffn_kernel.launches == before + 1
+            assert torch.equal(got, moe_ffn_kernel(x, *want))
+            plain = moe_ffn_ref(x, *want)
+        assert experts == sorted(wave)
+        assert float((got - plain).abs().max() / plain.abs().max()) <= REL_TOL
+
+
+def test_kill_during_inflight_threaded_prefetch_on_the_card(dev):
+    """Workers die mid-layer while the token's later fetches are still in
+    flight on the side stream, and their slot tensors (filled there) are
+    freed through the eviction path: the stranded experts reload on
+    survivors, every wave after the kill computes what
+    ``greedy_generate`` does, and the events and stats equal the
+    synchronous engine's under the same script."""
+    params = init_params(FLEET, seed=3, device=dev)
+    batch = {"tokens": torch.randint(0, 97, (2, 12), generator=torch.Generator()
+                                     .manual_seed(4), dtype=torch.int32).to(dev)}
+    ref = greedy_generate(FLEET, params, batch, 8)
+    script = [FaultEvent(2, 1, "kill", moe_index=0), FaultEvent(3, 5, "kill", moe_index=2),
+              FaultEvent(5, 1, "recover"), FaultEvent(6, 6, "kill", moe_index=1)]
+
+    def run(prefetch, residency):
+        eng = ODMoEEngine(FLEET, params, device=dev, prefetch=prefetch, residency=residency,
+                          faults=FaultInjector(script))
+        toks, _ = eng.generate(batch, 8)
+        eng.close()
+        return toks, [(e.token, e.layer, e.expert, e.worker, e.predicted, e.bytes)
+                      for e in eng.slots.events], dict(eng.slots.stats)
+
+    for residency in (None, "lru"):
+        base = run(None, residency)
+        assert torch.equal(base[0], ref)
+        assert base[2]["failures"] == 3 and base[2]["failure_drops"] >= 2
+        assert any(not p and t == 2 for t, _, _, _, p, _ in base[1])
+        for prefetch in ("thread", "thread", ChaosExecutor(11, p_drop=0.3, p_defer=0.3)):
+            toks, events, stats = run(prefetch, residency)
+            assert torch.equal(toks, ref), (prefetch, residency)
+            assert events == base[1] and stats == base[2], (prefetch, residency)
+
+
+def test_fleet_engine_on_the_card_equals_greedy(dev):
+    """Heterogeneous links, two-slot workers and a kill, throttle and
+    recovery through the engine on the card: tokens equal
+    ``greedy_generate`` and every wave ran on the kernel."""
+    params = init_params(FLEET, seed=5, device=dev)
+    batch = {"tokens": torch.randint(0, 97, (1, 12), generator=torch.Generator()
+                                     .manual_seed(6), dtype=torch.int32).to(dev)}
+    profiles = [WorkerProfile(w, link_gbps=24.0 if w < 4 else 12.0, capacity=2 if w < 4 else 1)
+                for w in range(8)]
+    script = [FaultEvent(2, 2, "kill", moe_index=1), FaultEvent(3, 6, "throttle", factor=0.25),
+              FaultEvent(5, 2, "recover")]
+    before = moe_ffn_kernel.launches
+    eng = ODMoEEngine(FLEET, params, predictor="sep", device=dev, profiles=profiles,
+                      faults=FaultInjector(script))
+    toks, _ = eng.generate(batch, 8)
+    assert moe_ffn_kernel.launches > before
+    assert torch.equal(toks, greedy_generate(FLEET, params, batch, 8))
+    assert (eng.slots.stats["failures"], eng.slots.stats["recoveries"]) == (1, 1)
+    assert len(eng.faults.applied) == 3
+    assert eng.memory_report()["per_worker_bytes"] == 2 * eng.store.expert_bytes

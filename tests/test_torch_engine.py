@@ -165,13 +165,21 @@ def test_shared_store_of_another_policy_raises_as_jax_does(setup):
                     device="cpu")
 
 
-@pytest.mark.parametrize("kw", [
-    {"profiles": [object()] * 8}, {"faults": object()},
-    {"compute_vs_ship": True}, {"wave_compute": "loop"}])
-def test_unported_engine_options_raise(setup, kw):
+@pytest.mark.parametrize("kw,item", [
+    ({"compute_vs_ship": True}, "placement and compute-vs-ship, then serve/cluster.py"),
+    ({"wave_compute": "loop"}, "the wave_compute='loop' oracle"),
+    ({"plan": object()}, "placement and compute-vs-ship, then serve/cluster.py")])
+def test_unported_engine_options_raise(setup, kw, item):
+    """Each unported option names its ROADMAP.md queue 1 item; a placement
+    plan is refused by the fleet schedule the engine would run on."""
+    from repro_torch.fleet import FleetSchedule
     _, _, tcfg, tparams, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ODMoEEngine(tcfg, tparams, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        if "plan" in kw:
+            ODMoEEngine(tcfg, tparams, device="cpu", sched=FleetSchedule(8, 2, **kw))
+        else:
+            ODMoEEngine(tcfg, tparams, device="cpu", **kw)
+    assert item in str(err.value)
 
 
 @pytest.mark.parametrize("periods", [(0, 0), (2, 3), (0, 1), (3, 0)])

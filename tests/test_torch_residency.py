@@ -6,8 +6,8 @@ references (the port of ``tests/test_residency.py``).
 Residency may only remove loads: a re-hit appends no event and moves no
 byte, an eviction frees exactly the slot bytes its load charged, and a
 release without a policy is an eviction.  The worker-failure case of
-``tests/test_residency.py`` waits for fleet faults (ROADMAP.md queue 1,
-item 4)."""
+``tests/test_residency.py`` is in ``tests/test_torch_fleet.py``, with the
+rest of the fleet."""
 import functools
 import random
 
