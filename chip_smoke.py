@@ -124,6 +124,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
              while the script had it dead.  Prints
              ``degraded_report()``, composed-step times by B and the
              kernels' launches.
+8g. placement — a ``GateStatsRecorder`` calibrated on the slice prompt
+             (``gate_stats=``, 8 tokens), ``optimize_placement`` for 8 workers in
+             groups of 2, then the prompt decoded on ``FleetSchedule(8, 2,
+             plan=plan)`` synchronously and with ``prefetch="thread"``: tokens
+             equal ``greedy_generate``, the threaded run's load events equal
+             the synchronous run's, every predicted load whose planned worker
+             had a free slot lands on it, and at least one lands outside its
+             modulo home group.  Prints ``expected_t_maxload`` of the plan and
+             of ``modulo_plan`` (modelled), TPOT beside the slice's and loads
+             per token.
+8h. cvs    — ``compute_vs_ship=True`` (42 GB/s) with no predictor on 8
+             uniform workers in groups of 2, links at 24 GB/s (every cold
+             expert hosted: no reload, no byte moved, 2 hosted per MoE layer
+             per token) and at 100 GB/s (every expert ships): tokens equal
+             ``greedy_generate``; the hosted run's peak memory is at most one
+             layer's stack of 2 experts above the shipped run's.  Prints TPOT
+             on the card and modelled, and peak memory, of both.
+8i. cluster — ``make_cluster`` with 2 replicas on the serve phase's traffic
+             (dense KV, max batch 4): least-loaded with a shared gate-statistics
+             recorder, then round-robin under the placement phase's plan with
+             compute-vs-ship on 24 GB/s links.  Every request equals the
+             serve phase's output (its solo decode), both replicas serve, the
+             replicas share one store and one schedule, and the second run
+             hosts at least one expert.  Prints the modelled cluster report,
+             each replica's requests and mean batch, composed-step times by B
+             beside the serve phase's, launches and peak memory.
 9. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
              width in fp32 (2 layers), transport int8, nf4 and tiered in
              turn: engine tokens equal ``greedy_generate`` under the same
@@ -812,6 +838,7 @@ def phase_small():
 
 
 def phase_slice() -> dict:
+    import statistics
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_gemm import moe_ffn_kernel
@@ -866,6 +893,7 @@ def phase_slice() -> dict:
           flush=True)
     return {"launches": res["launches_engine"]["moe_ffn"], "cfg": cfg, "params": params,
             "prefill_ms": prefill, "reference": res["reference"],
+            "tpot_ms": statistics.median(res["step_seconds"]) * 1e3,
             "batch": _prompt(cfg, args.prompt_len, args.seed, "cuda")}
 
 
@@ -1544,6 +1572,223 @@ def phase_fleet_serve(cfg, params, serve: dict, store) -> dict:
     return {"launches": launches, "steps_by_b": by_b, "report": rep, "peak_gb": peak}
 
 
+def _decode_run(eng, batch, ref, label: str) -> dict:
+    """Decode the slice prompt on ``eng`` (8 tokens), hold it to the slice's
+    ``greedy_generate`` and return its trace, TPOT, peak memory and launches."""
+    import statistics
+    import torch
+    from repro_torch.launch.serve import KERNELS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    toks, trace = eng.generate(batch, 8)
+    eng.close()
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    if not torch.equal(toks, ref):
+        fail(f"{label}: engine tokens differ from greedy_generate")
+    if launches["moe_ffn"] <= 0:
+        fail(f"{label}: the engine did not launch moe_ffn")
+    return {"trace": trace, "tpot_ms": statistics.median(r.seconds for r in trace.records) * 1e3,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+            "loads_per_token": eng.slots.stats["loads"] / len(trace.records)}
+
+
+def phase_placement(cfg, params, slice_run: dict, store) -> dict:
+    """Gate-statistics placement: calibrate a ``GateStatsRecorder`` on the
+    slice prompt, optimize a plan for 8 workers in groups of 2, and decode
+    the prompt under it, synchronously and with the threaded executor."""
+    from repro_torch.core import ODMoEEngine
+    from repro_torch.fleet import (FleetSchedule, GateStatsRecorder, expected_t_maxload,
+                                   modulo_plan, optimize_placement)
+    batch, ref = slice_run["batch"], slice_run["reference"]
+    rec = GateStatsRecorder()
+    cal = ODMoEEngine(cfg, params, n_workers=8, predictor="sep", shadow_scheme="int8",
+                      device="cuda", store=store, gate_stats=rec)
+    _decode_run(cal, batch, ref, "placement calibration")
+    del cal
+    base = FleetSchedule(8, 2)
+    kw = dict(num_experts=cfg.num_experts, n_moe=rec.n_layers)
+    bkw = dict(kw, expert_bytes=store.expert_bytes)
+    plan = optimize_placement(rec, base, **bkw)
+    e_opt = expected_t_maxload(plan, rec, base, **bkw)
+    e_mod = expected_t_maxload(modulo_plan(base, **kw), rec, base, **bkw)
+    print(f"[placement] gate statistics of 8 tokens over {rec.n_layers} MoE layers: counts "
+          f"{rec.counts}; plan orders {plan.orders}; expert -> worker {plan.expert_workers}")
+    print(f"[placement] expected t_maxload (modelled, {base.link_gbps_of(0):g} GB/s links, "
+          f"{store.expert_bytes} bytes an expert): plan {e_opt * 1e3:.4f} ms, modulo "
+          f"{e_mod * 1e3:.4f} ms", flush=True)
+    runs, launches = {}, 0
+    for name, prefetch in (("sync", None), ("thread", "thread")):
+        eng = ODMoEEngine(cfg, params, predictor="sep", shadow_scheme="int8", device="cuda",
+                          store=store, prefetch=prefetch, sched=FleetSchedule(8, 2, plan=plan))
+        run = _decode_run(eng, batch, ref, f"placement {name}")
+        run["events"] = [(e.token, e.layer, e.expert, e.worker, e.predicted, e.bytes)
+                         for e in eng.slots.events]
+        launches += run["launches"]["moe_ffn"]
+        runs[name] = run
+        del eng
+    if runs["thread"]["events"] != runs["sync"]["events"]:
+        fail("placement: the threaded run's load events differ from the synchronous run's")
+    moe_of = {li: i for i, li in enumerate(store.moe_layers)}
+    pinned = outside = 0
+    taken = {}
+    for tok, layer, e, w, predicted, _ in runs["sync"]["events"]:
+        if not predicted:
+            continue
+        m = moe_of[layer]
+        used = taken.setdefault((tok, layer), set())
+        want = plan.worker_of(m, e)
+        if want not in used:            # the planned worker is alive with a free slot
+            if w != want:
+                fail(f"placement: step {tok} layer {layer} expert {e} loaded on worker {w}, "
+                     f"the plan's worker {want} was free")
+            pinned += 1
+        used.add(w)
+        if w not in base.workers_of_group(base.group_of(m)):
+            outside += 1
+    if outside < 1:
+        fail("placement: no predicted load landed outside its modulo home group")
+    for name, run in runs.items():
+        print(f"[placement] {name:6s}: tokens == greedy_generate: True; TPOT median "
+              f"{run['tpot_ms']:.3f} ms (slice phase, this call: {slice_run['tpot_ms']:.3f} ms); "
+              f"{run['loads_per_token']:.3f} loads a token; peak device memory "
+              f"{run['peak_bytes'] / 1e9:.2f} GB; moe_ffn launches {run['launches']['moe_ffn']}")
+    print(f"[placement] thread events == sync events: True; {pinned} predicted loads on their "
+          f"planned worker, {outside} outside their modulo home group", flush=True)
+    return {"plan": plan, "launches": launches, "e_opt": e_opt, "e_mod": e_mod}
+
+
+def phase_cvs(cfg, params, slice_run: dict, store) -> dict:
+    """Compute-vs-ship with no predictor on 8 uniform workers in groups of 2:
+    at 24 GB/s every cold expert is hosted (14.68 ms to ship, 8.39 ms from
+    host memory at 42 GB/s); at 100 GB/s (3.52 ms) every expert ships."""
+    from repro_torch.core import RTX3090_EDGE, ODMoEEngine, simulate_odmoe
+    from repro_torch.fleet import WorkerProfile
+    batch, ref = slice_run["batch"], slice_run["reference"]
+    runs, launches = {}, 0
+    for gbps in (24.0, 100.0):
+        eng = ODMoEEngine(cfg, params, predictor="none", device="cuda", store=store,
+                          compute_vs_ship=True,
+                          profiles=[WorkerProfile(w, link_gbps=gbps) for w in range(8)])
+        t_ship = eng.sched.t_load_s(0, store.packed_bytes(store.moe_layers[0], 0))
+        t_host = store.expert_bytes / (eng.cvs_gbps * 1e9)
+        run = _decode_run(eng, batch, ref, f"cvs {gbps:g} GB/s")
+        trace = run["trace"]
+        hosted = [len(lr.hosted) for r in trace.records for lr in r.layers]
+        reloads = sum(lr.reloads for r in trace.records for lr in r.layers)
+        if gbps == 24.0 and (reloads or eng.slots.bytes_moved or set(hosted) != {2}):
+            fail(f"cvs 24 GB/s: reloads {reloads}, bytes_moved {eng.slots.bytes_moved}, hosted "
+                 f"per layer {sorted(set(hosted))}: not every cold expert hosted")
+        if gbps == 100.0 and (any(hosted) or reloads != 2 * len(hosted)):
+            fail(f"cvs 100 GB/s: hosted {sum(hosted)}, reloads {reloads}: not every expert "
+                 f"shipped")
+        modelled = simulate_odmoe(cfg, trace, eng.sched, RTX3090_EDGE, predictor="none")
+        run.update(hosted=sum(hosted), reloads=reloads, bytes_moved=eng.slots.bytes_moved,
+                   t_ship=t_ship, t_host=t_host,
+                   modelled_ms=sum(modelled.per_token_s) / len(modelled.per_token_s) * 1e3)
+        launches += run["launches"]["moe_ffn"]
+        runs[gbps] = run
+        del eng
+        print(f"[cvs] {gbps:5g} GB/s: t_ship {t_ship * 1e3:.2f} ms, t_host {t_host * 1e3:.2f} ms; "
+              f"tokens == greedy_generate: True; hosted {run['hosted']}, reloads {reloads}, "
+              f"bytes_moved {run['bytes_moved']}; TPOT median {run['tpot_ms']:.3f} ms (card); "
+              f"modelled TPOT (rtx3090-edge profile, not measured) {run['modelled_ms']:.3f} ms; "
+              f"peak device memory {run['peak_bytes'] / 1e9:.3f} GB; moe_ffn launches "
+              f"{run['launches']['moe_ffn']}", flush=True)
+    hosted, shipped = runs[24.0], runs[100.0]
+    if hosted["peak_bytes"] > shipped["peak_bytes"] + 2 * store.expert_bytes:
+        fail(f"cvs: hosted peak {hosted['peak_bytes']} exceeds the shipped run's "
+             f"{shipped['peak_bytes']} by more than one layer's stack of 2 experts "
+             f"({2 * store.expert_bytes} B)")
+    print(f"[cvs] hosted / shipped on the card: TPOT {hosted['tpot_ms'] / shipped['tpot_ms']:.3f}x "
+          f"(one card: a hosted stack crosses the same host link a slot load does); peak "
+          f"{(hosted['peak_bytes'] - shipped['peak_bytes']) / 1e6:+.1f} MB; modelled "
+          f"{hosted['modelled_ms'] / shipped['modelled_ms']:.3f}x", flush=True)
+    return {"launches": launches, "runs": runs}
+
+
+def phase_cluster(cfg, params, serve: dict, store, plan) -> dict:
+    """Two replicas over one store and one fleet on the serve phase's
+    traffic (dense KV, as the JAX package's ``serve_cluster``): least-loaded
+    with a shared gate-statistics recorder, then round-robin under the
+    placement phase's plan with compute-vs-ship on 24 GB/s links."""
+    import torch
+    import numpy as np
+    from repro_torch.fleet import FleetSchedule, GateStatsRecorder, WorkerProfile
+    from repro_torch.launch.serve import KERNELS
+    from repro_torch.serve import make_cluster, make_traffic
+    reqs = make_traffic(cfg, 8, 0.0, prompt_len=128, max_new=8, seed=SERVE_SEED)
+    rec = GateStatsRecorder()
+    links = [WorkerProfile(w, link_gbps=24.0) for w in range(8)]
+    runs = {"least_loaded": dict(n_workers=8, gate_stats=rec),
+            "round_robin": dict(sched=FleetSchedule(8, 2, profiles=links, plan=plan),
+                                compute_vs_ship=True)}
+    out = {"launches": {"moe_ffn": 0, "flash_decode": 0}, "runs": {}}
+    for policy, kw in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated() / 1e9
+        _reset_launches()
+        t0 = time.perf_counter()
+        router = make_cluster(cfg, params, replicas=2, policy=policy,
+                              engine_kw=dict(kw, predictor="sep", shadow_scheme="int8",
+                                             device="cuda", store=store),
+                              loop_kw=dict(max_batch=4))
+        res = router.run(reqs)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for r in reqs:
+            if not np.array_equal(res.outputs[r.rid], serve["outputs"][r.rid]):
+                fail(f"cluster {policy}: request {r.rid} differs from its solo decode")
+        engines = [l.engine for l in router.loops]
+        if any(e.store is not store or e.sched is not engines[0].sched for e in engines):
+            fail(f"cluster {policy}: the replicas do not share one store and one schedule")
+        per = res.per_replica_report()
+        if any(rr["requests"] < 1 for rr in per):
+            fail(f"cluster {policy}: a replica served no request ({res.assignments})")
+        for name in ("moe_ffn", "flash_decode"):
+            if launches[name] <= 0:
+                fail(f"cluster {policy}: {name} did not launch")
+            out["launches"][name] += launches[name]
+        hosted = sum(len(lr.hosted) for r in res.replicas for s in r.trace.records
+                     for lr in s.layers)
+        if policy == "round_robin" and hosted < 1:
+            fail("cluster round_robin: compute-vs-ship on 24 GB/s links hosted no expert")
+        by_b = {}
+        for r in res.replicas:
+            for st in r.steps:
+                by_b.setdefault(len(st.request_ids), []).append(st.wall_s * 1e3)
+        steps = {b: (float(np.median(ts)), len(ts)) for b, ts in sorted(by_b.items())}
+        rep = res.report()
+        loads = sum(len(e.slots.events) for e in engines)
+        out["runs"][policy] = dict(report=rep, steps=steps, hosted=hosted, peak_gb=peak,
+                                   launches=launches, loads=loads)
+        print(f"[cluster] {policy}: make_cluster + run took {took:.1f} s; tokens of all "
+              f"{len(reqs)} requests == solo greedy_generate (the serve phase's outputs); "
+              f"assignments {res.assignments}; replicas share one store and one schedule: True",
+              flush=True)
+        print(f"[cluster] {policy}: per replica (requests, mean batch) "
+              f"{[(rr['requests'], round(rr['mean_batch'], 3)) for rr in per]}; hosted experts "
+              f"{hosted}; loads {loads}; device memory before building the replicas "
+              f"{resting:.2f} GB, peak with two replicas' shadows and slots {peak:.2f} GB; launches (engines+shadows) moe_ffn {launches['moe_ffn']}, "
+              f"flash_decode {launches['flash_decode']}")
+        print(f"[cluster] {policy}: modelled (rtx3090-edge profile, not measured) TTFT mean "
+              f"{rep['ttft_mean_s'] * 1e3:.3f} ms, TPOT mean {rep['tpot_mean_s'] * 1e3:.3f} ms, "
+              f"throughput {rep['throughput_tok_s']:.3f} tok/s")
+        print(f"[cluster] {policy}: composed step (card's own wall time, both replicas): "
+              f"{fmt_steps(steps)}; serve phase of this call: {fmt_steps(serve['steps_by_b'])}",
+              flush=True)
+        del router, res, engines
+    print(f"[cluster] pooled gate statistics (least_loaded): {rec.n_layers} MoE layers, "
+          f"{sum(rec.rows.values())} routed rows")
+    return out
+
+
 INT8_SWEEP = ((32, 128, 64), (64, 256, 96), (13, 70, 33))   # tests/test_kernels.py's shapes
 INT8_SHAPES = ((D_MODEL, D_EXPERT), (D_EXPERT, D_MODEL))      # a Mixtral-8x7B expert's matrices
 INT8_TIME_ROWS = (1, 4, 8)
@@ -2179,8 +2424,12 @@ def main():
     spec = phase_spec(cfg, params)
     sserve = phase_spec_serve(cfg, params, serve["steps_by_b"])
     fleet = phase_fleet(cfg, params, moe)
-    fserve = phase_fleet_serve(cfg, params, serve, fleet.pop("store"))
-    del cfg, params, moe["batch"], moe["reference"]
+    store = fleet.pop("store")
+    fserve = phase_fleet_serve(cfg, params, serve, store)
+    placement = phase_placement(cfg, params, moe, store)
+    cvs = phase_cvs(cfg, params, moe, store)
+    cluster = phase_cluster(cfg, params, serve, store, placement.pop("plan"))
+    del cfg, params, moe["batch"], moe["reference"], store
     gc.collect()
     torch.cuda.empty_cache()
     packed = phase_packed_slice()
@@ -2212,6 +2461,8 @@ def main():
         "spec_serve_launches": sserve["launches"]["moe_ffn"],
         "fleet_launches": fleet["launches"]["moe_ffn"],
         "fleet_serve_launches": fserve["launches"]["moe_ffn"],
+        "placement_launches": placement["launches"], "cvs_launches": cvs["launches"],
+        "cluster_launches": cluster["launches"]["moe_ffn"],
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} bf16 weights (engine wave)",
@@ -2242,6 +2493,7 @@ def main():
         "spec_launches": spec["launches"]["flash_decode"],
         "spec_serve_launches": sserve["launches"]["flash_decode"],
         "fleet_serve_launches": fserve["launches"]["flash_decode"],
+        "cluster_launches": cluster["launches"]["flash_decode"],
         "verify_ms": vrow["ms"], "verify_plain_ms": vrow["plain_ms"],
         "verify_library_ms": vrow["library_ms"], "verify_bound_ms": vrow["bound_ms"],
         "verify_bound_by": vrow["bound_by"], "verify_max_abs_err": vrow["max_abs_err"],

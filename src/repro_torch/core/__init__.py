@@ -3,8 +3,9 @@ on-demand expert loading engine (single stream and the request-level API
 the serving loop composes), worker-group scheduling, the expert store
 and worker slots (full-width or packed-resident), prefill assignment and
 the decode and serving timing model (fleet- and fault-aware over a
-``repro_torch.fleet.FleetSchedule``), async expert prefetch with
-opportunistic residency, and shadow-drafted speculative decoding."""
+``repro_torch.fleet.FleetSchedule``, pricing experts that compute-vs-ship
+hosts on the main node), async expert prefetch with opportunistic
+residency, and shadow-drafted speculative decoding."""
 from .align import AlignmentPolicy, kv_bytes_per_token, token_bytes
 from .engine import (LayerRecord, ODMoEEngine, TokenRecord, Trace, concat_cache_lists,
                      slice_cache_list)

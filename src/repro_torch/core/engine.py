@@ -46,11 +46,20 @@ heterogeneous, fault-tolerant fleet on a ``FleetSchedule``: dead workers
 drop out of every order, multi-slot workers absorb extra predicted
 experts, and a worker that dies mid-layer strands its predicted experts,
 which reload on a survivor.  Faults cost reloads and time, never a token.
+A ``sched=FleetSchedule(plan=...)`` places predicted experts by a
+gate-statistics plan (``repro_torch.fleet.placement``), whose statistics
+``gate_stats=`` (a ``GateStatsRecorder``) collects; cluster replicas
+(``repro_torch.serve.cluster``) share one store, schedule and recorder.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md
-queue 1, "placement and compute-vs-ship, then serve/cluster.py" and "the
-wave_compute='loop' oracle"): compute-vs-ship, gate-statistics placement
-and the per-pair ``loop`` wave oracle.
+``compute_vs_ship`` (``True`` = 42 GB/s, or a host-memory rate in GB/s)
+prices each cold expert both ways: shipping its packed bytes over the
+candidate worker's link, or streaming its full-width weights from host
+memory to compute on the main node.  A hosted expert is stacked from the
+store's round-tripped shard for one ``grouped_topk_contrib`` call and
+freed after it: no slot, no load event, no bytes moved, the same bits.
+
+Not ported yet, raising ``NotImplementedError`` (ROADMAP.md queue 1, "the
+wave_compute='loop' oracle"): the per-pair ``loop`` wave oracle.
 """
 from __future__ import annotations
 
@@ -72,7 +81,7 @@ from repro_torch.models.layers import embed
 from repro_torch.models.transformer import (decode_logits, layer_params, tree_concat,
                                             tree_leaves, tree_map, tree_stack)
 from repro_torch.quant.quantize import shadow_nbytes
-from repro_torch.quant.transport import resolve_policy, transport_params
+from repro_torch.quant.transport import EXPERT_WEIGHT_NAMES, resolve_policy, transport_params
 
 from .align import AlignmentPolicy
 from .prefetch import PrefetchExecutor, make_executor, resolve_residency
@@ -100,6 +109,9 @@ class LayerRecord:
     # (re-hits excluded), which the timing model prices; None otherwise
     shipped: Optional[Tuple[int, ...]] = None
     rehits: int = 0                      # residency re-hits this layer
+    # compute-vs-ship: cold experts computed on the main node from host
+    # memory instead of shipped (the same weights; priced as host compute)
+    hosted: Tuple[int, ...] = ()
 
 
 @dataclass
@@ -195,7 +207,8 @@ class ODMoEEngine:
                  transport=None, device="cuda", speculate: int = 1,
                  prefetch=None, residency=None, peek_horizon: int = 0,
                  packed_slots: bool = False, store=None, profiles=None, faults=None,
-                 sched=None, compute_vs_ship=None, wave_compute: str = "grouped"):
+                 sched=None, gate_stats=None, compute_vs_ship=None,
+                 wave_compute: str = "grouped"):
         if cfg.is_encoder_decoder:
             raise ValueError("engine drives decoder-only models")
         if wave_compute not in ("grouped", "loop"):
@@ -222,9 +235,15 @@ class ODMoEEngine:
         if packed_slots and wave_compute != "grouped":
             # the loop oracle reads full-width slot dicts
             raise ValueError("packed_slots requires the grouped wave path")
-        if compute_vs_ship is not None:
-            _not_ported("compute_vs_ship",
-                        "placement and compute-vs-ship, then serve/cluster.py")
+        # compute-vs-ship: None always ships; a rate in GB/s hosts a cold
+        # expert whose host-memory stream beats its worker's link
+        if compute_vs_ship is True:
+            compute_vs_ship = 42.0        # RTX3090_EDGE.cpu_mem_gbps
+        if compute_vs_ship is not None and compute_vs_ship <= 0:
+            raise ValueError("compute_vs_ship must be a positive GB/s")
+        if compute_vs_ship is not None and wave_compute != "grouped":
+            raise ValueError("compute_vs_ship requires the grouped wave path")
+        self.cvs_gbps = compute_vs_ship
         if wave_compute != "grouped":
             _not_ported(f"wave_compute={wave_compute!r}", "the wave_compute='loop' oracle")
         self.predictor_kind = predictor
@@ -257,14 +276,19 @@ class ODMoEEngine:
                     raise ValueError("len(profiles) must be divisible by the group size")
             elif n_workers % g:
                 n_workers = g * max(1, n_workers // g)
-            if profiles is not None or faults is not None:
-                # lazy: repro_torch.fleet imports repro_torch.core.schedule
+            if profiles is not None or faults is not None or compute_vs_ship is not None:
+                # lazy: repro_torch.fleet imports repro_torch.core.schedule.
+                # Compute-vs-ship prices links with FleetSchedule.t_load_s; a
+                # uniform fleet orders exactly like GroupSchedule
                 from repro_torch.fleet import FleetSchedule, uniform_profiles
                 self.sched = FleetSchedule(n_workers, g,
                                            profiles=profiles or uniform_profiles(n_workers))
             else:
                 self.sched = GroupSchedule(n_workers, g)
         self.faults = faults
+        # a GateStatsRecorder (duck-typed) observing every step's routing;
+        # it records only
+        self.gate_stats = gate_stats
         # a prebuilt ``store`` (engines over the same parameters may share
         # one) must carry this engine's transport policy, or slot contents
         # would diverge from its compute params
@@ -557,6 +581,8 @@ class ODMoEEngine:
         rec.layers.append(lr)
         if self.freq is not None:
             self.freq.observe(li, true)
+        if self.gate_stats is not None:
+            self.gate_stats.observe(moe_i, true, lr.gates)
         if self.residency is not None:
             self.slots.observe_gates(li, true, lr.gates)
         x = x + y[:, None].to(x.dtype)
@@ -620,6 +646,7 @@ class ODMoEEngine:
         reloads = 0
         assignments: List[Tuple[int, int]] = []
         waves: List[List[Tuple[int, int]]] = []
+        hosted: List[int] = []
         contrib = None                                    # (B, k, d) fp32
         remaining = needed
         while remaining:
@@ -641,6 +668,7 @@ class ODMoEEngine:
             # the executor, then commit in assignment order: the worker
             # choices and event order of the synchronous path
             loads: List[Tuple[int, int]] = []
+            wave_hosted: List[int] = []
             for e in remaining:
                 if e in wave:
                     continue
@@ -649,6 +677,11 @@ class ODMoEEngine:
                     #                 computes in the next wave, no reload
                 if not free:
                     break                                 # overflow -> next wave
+                # compute-vs-ship: host it when that beats the candidate's
+                # link; the candidate stays free for the next miss
+                if self._prefer_host(layer, e, free[0]):
+                    wave_hosted.append(e)
+                    continue
                 loads.append((e, free.pop(0)))
             payloads = (self.prefetch.fetch_now(step_idx, layer, [e for e, _ in loads])
                         if self.prefetch is not None and loads else {})
@@ -658,11 +691,16 @@ class ODMoEEngine:
                 touched.add(w)
                 reloads += 1
                 wave[e] = w
-            contrib = self._compute_wave(layer, h, true, gates, wave, contrib)
+            if wave:                       # an all-hosted wave skips the slot call
+                contrib = self._compute_wave(layer, h, true, gates, wave, contrib)
+            if wave_hosted:
+                contrib = self._compute_hosted(layer, h, true, gates, wave_hosted, contrib)
             done = [(e, wave[e]) for e in remaining if e in wave]
             assignments.extend(done)
             waves.append(done)
-            remaining = [e for e in remaining if e not in wave]
+            hosted.extend(wave_hosted)
+            skip = set(wave) | set(wave_hosted)
+            remaining = [e for e in remaining if e not in skip]
         y = combine_topk(contrib)
         lr = LayerRecord(layer=layer, moe_index=moe_i, group=group,
                          predicted=pred, true=true,
@@ -671,8 +709,41 @@ class ODMoEEngine:
                          touched=tuple(sorted(touched)),
                          gates=gates.cpu().numpy(),
                          shipped=tuple(shipped) if self.residency is not None else None,
-                         rehits=rehits)
+                         rehits=rehits, hosted=tuple(hosted))
         return lr, y
+
+    # ---------------------------------------------------- compute-vs-ship
+    def _prefer_host(self, layer: int, expert: int, worker: int) -> bool:
+        """Whether streaming the expert's full-width weights from host
+        memory beats shipping its packed payload over ``worker``'s
+        (throttled) link, priced by ``FleetSchedule.t_load_s`` as the
+        timing clock prices it."""
+        if self.cvs_gbps is None:
+            return False
+        t_ship = self.sched.t_load_s(worker, self.store.packed_bytes(layer, expert))
+        t_host = self.store.expert_bytes / (self.cvs_gbps * 1e9)
+        return t_host < t_ship
+
+    def _compute_hosted(self, layer, h, true, gates, experts: List[int], contrib):
+        """The main-node twin of ``_compute_wave``: the stack comes from
+        the store's shards (``unpack_shard``, the round trip a slot holds)
+        instead of slot contents, for one grouped-FFN call, so the
+        contributions are the slots' bits.  The stack is a transient device
+        tensor, not a slot: it records no load and is freed on return."""
+        experts = sorted(experts)
+        stacked: Dict[str, torch.Tensor] = {}
+        for i, e in enumerate(experts):
+            # copied in one expert at a time: one shard lives beside the stack
+            shard = self.store.unpack_shard(layer, e)
+            for name in EXPERT_WEIGHT_NAMES:
+                w = shard[name]
+                if name not in stacked:
+                    stacked[name] = w.new_empty((len(experts),) + tuple(w.shape))
+                stacked[name][i].copy_(w)
+            del shard
+        wc = grouped_topk_contrib(h, stacked["w_gate"], stacked["w_up"], stacked["w_down"],
+                                  self._slot_map(true, experts, h), gates)
+        return wc if contrib is None else contrib + wc
 
     def _compute_wave(self, layer, h, true, gates, wave: Dict[int, int], contrib):
         """One grouped-FFN call on the wave's stacked slot weights: every

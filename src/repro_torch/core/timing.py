@@ -18,10 +18,13 @@ wave is priced by its width (wider activation hops, and the shadow's
 extra draft passes before its predictions).  ``RTX3090_EDGE`` is
 the paper's edge testbed.  Over a ``repro_torch.fleet.FleetSchedule``
 each load is priced on its worker's own (throttled) link, dead workers
-drop out of the orders, and ``simulate_odmoe(..., faults=)`` replays a
-fault script.  Counterpart: ``repro.core.timing``; the offload-cache
-baselines and the pricing of main-node-hosted experts wait (ROADMAP.md
-queue 1).
+drop out of the orders (a placement plan's orders, where it has one), and
+``simulate_odmoe(..., faults=)`` replays a fault script.  Experts that
+compute-vs-ship hosted on the main node cross no link: each costs its
+full-width stream from host memory after the gate.  Cluster replicas run
+one clock each over a shared ``worker_free``.  Counterpart:
+``repro.core.timing``; the offload-cache and CPU baselines wait
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -143,6 +146,7 @@ class DecodeClock:
 
     def __init__(self, cfg: ModelConfig, sched: GroupSchedule, profile: HardwareProfile,
                  shadow_scheme: str = "int8", predictor: str = "sep", transport=None,
+                 worker_free: Optional[Dict[int, float]] = None,
                  packed_compute: bool = False):
         self.sched = sched
         self.profile = profile
@@ -168,6 +172,9 @@ class DecodeClock:
         self.t_load = profile.t_load(default_packed)
         self.t_head = profile.t_stream(lb["embed"])
         self._expert_bytes = default_packed
+        # compute-vs-ship: a hosted expert streams its full-width weights
+        # from the main node's host memory
+        self.t_exp_host = lb["expert"] / (profile.cpu_mem_gbps * 1e9)
         # a FleetSchedule's shared liveness and throttle state
         self._fleet_state = getattr(sched, "state", None)
         # the shadow runs the whole (quantized) model on its own node
@@ -175,7 +182,10 @@ class DecodeClock:
         shadow_active = cfg.active_param_count() * wb * qf
         self.t_shadow_layer = profile.t_stream(shadow_active / cfg.num_layers)
         self.align_payload = kv_bytes_per_token(cfg, wb)
-        self.worker_free: Dict[int, float] = defaultdict(float)
+        # may be shared: cluster replicas run a clock each over one fleet,
+        # so a worker loading for one replica delays the others
+        self.worker_free: Dict[int, float] = (
+            worker_free if worker_free is not None else defaultdict(float))
         self.now = 0.0
 
     def _scheme_bytes(self, scheme: str) -> float:
@@ -282,6 +292,8 @@ class DecodeClock:
             targets = sched.load_targets(moe_i)
             if not targets:                    # the whole fleet is dead
                 raise RuntimeError("no alive workers in the fleet")
+            # hosted experts crossed no link: never priced as loads below
+            hosted = set(lr.hosted) if lr is not None else set()
             load_done = 0.0
             if (lr is not None and lr.predicted is not None
                     and lr.shipped is not None):
@@ -307,9 +319,15 @@ class DecodeClock:
                     load_done = max(load_done, worker_free[w])
             else:
                 # no prediction: load after the gate result
-                true_u = ([int(e) for e in dict.fromkeys(lr.true.reshape(-1).tolist())]
+                true_u = ([int(e) for e in dict.fromkeys(lr.true.reshape(-1).tolist())
+                           if int(e) not in hosted]
                           if lr is not None else [])
-                n_loads = max(len(workers), min(len(true_u) or len(workers), len(targets)))
+                if hosted:
+                    # the record is exact: only the rest shipped, no padding
+                    n_loads = min(len(true_u), len(targets))
+                else:
+                    n_loads = max(len(workers),
+                                  min(len(true_u) or len(workers), len(targets)))
                 for j in range(n_loads):
                     w = targets[j % len(targets)]
                     e = true_u[j] if j < len(true_u) else None
@@ -321,7 +339,8 @@ class DecodeClock:
             # order, missed experts first
             if lr is not None and lr.predicted is not None and lr.reloads:
                 pred_set = {int(e) for e in lr.predicted.reshape(-1)}
-                true_set = [int(e) for e in dict.fromkeys(lr.true.reshape(-1).tolist())]
+                true_set = [int(e) for e in dict.fromkeys(lr.true.reshape(-1).tolist())
+                            if int(e) not in hosted]
                 pool = ([e for e in true_set if e not in pred_set]
                         + [e for e in true_set if e in pred_set])
                 for i in range(lr.reloads):
@@ -330,6 +349,9 @@ class DecodeClock:
                     ls = max(t, worker_free[w])
                     worker_free[w] = ls + self.t_load_for(w, self._bytes_for(li, e))
                     load_done = max(load_done, worker_free[w])
+            # hosted experts stream from host memory and compute serially on
+            # the main node after the gate
+            t += len(hosted) * self.t_exp_host
             ready = t + profile.t_lan(spec * self.emb)   # the wave's embeddings, one message
             ec_start = max(ready, load_done)
             stall += max(0.0, ec_start - ready)

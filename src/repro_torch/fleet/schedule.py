@@ -12,17 +12,19 @@ and makes every ordering decision fleet-aware:
   * ``load_targets`` expands the serving order by slot capacity,
     breadth-first, so multi-slot workers absorb extra predicted experts
     before the schedule spills further;
+  * a ``plan=`` (``repro_torch.fleet.placement.PlacementPlan``) replaces
+    the ``i mod G`` rotation with gate-statistics placement: worker orders
+    come from the plan (dead workers dropped at query time) and
+    ``place``/``assign`` honour its expert -> worker affinity; a uniform
+    plan orders exactly like the rotation;
   * Eq. (1) holds per worker: the ``t_maxload`` budget belongs to the
     group, but whether a link meets it is per link
     (``io_bottlenecked_worker``).
-
-A gate-statistics placement plan (``plan=``) is not ported yet (ROADMAP.md
-queue 1, "placement and compute-vs-ship, then serve/cluster.py").
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.schedule import GroupSchedule
 
@@ -33,14 +35,11 @@ from .profile import DEFAULT_LINK_GBPS, FleetState, WorkerProfile, uniform_profi
 class FleetSchedule(GroupSchedule):
     profiles: Tuple[WorkerProfile, ...] = ()
     state: Optional[FleetState] = field(default=None, compare=False, repr=False)
+    # a placement.PlacementPlan (untyped: placement imports this module)
     plan: Optional[object] = field(default=None, repr=False)
 
     def __post_init__(self):
         GroupSchedule.__post_init__(self)
-        if self.plan is not None:
-            raise NotImplementedError(
-                "placement plans are not ported yet (ROADMAP.md queue 1: placement and "
-                "compute-vs-ship, then serve/cluster.py)")
         if not self.profiles:
             object.__setattr__(self, "profiles", uniform_profiles(self.n_workers))
         if len(self.profiles) != self.n_workers:
@@ -49,6 +48,8 @@ class FleetSchedule(GroupSchedule):
             raise ValueError("profiles must be ordered by worker index")
         if self.state is None:
             object.__setattr__(self, "state", FleetState.fresh(self.n_workers))
+        if self.plan is not None and self.plan.n_workers != self.n_workers:
+            raise ValueError("plan sized for a different fleet")
 
     # ---------------------------------------------------------- liveness
     def alive(self, worker: int) -> bool:
@@ -65,13 +66,24 @@ class FleetSchedule(GroupSchedule):
         return sorted(workers, key=lambda w: -self.link_gbps_of(w))
 
     # ---------------------------------------------------------- ordering
+    def _plan_alive(self, moe_index: int) -> List[int]:
+        """The plan's worker order for this layer, dead workers dropped."""
+        return [w for w in self.plan.order_for(moe_index) if self.alive(w)]
+
     def active_workers_of_group(self, moe_index: int) -> List[int]:
+        if self.plan is not None:
+            home = self.plan.order_for(moe_index)[:self.group_size]
+            return [w for w in home if self.alive(w)]
         group = self.group_of(moe_index)
         return self._fast_first(w for w in self.workers_of_group(group) if self.alive(w))
 
     def spill_workers(self, moe_index: int) -> List[int]:
         """Overflow order: the other groups' alive workers, nearest group
-        first, fast links first within each group."""
+        first, fast links first within each group (with a plan: the plan's
+        order beyond the layer's home workers)."""
+        if self.plan is not None:
+            rest = self.plan.order_for(moe_index)[self.group_size:]
+            return [w for w in rest if self.alive(w)]
         group = self.group_of(moe_index)
         order: List[int] = []
         for step in range(1, self.n_groups):
@@ -100,11 +112,63 @@ class FleetSchedule(GroupSchedule):
         """(expert, worker) pairs over the capacity-expanded
         ``load_targets``: overflow beyond the group spills onto other
         groups' alive workers, and a multi-slot worker takes a second
-        expert before any worker is reused beyond its capacity."""
+        expert before any worker is reused beyond its capacity.  Under a
+        plan with affinity, each expert goes to its planned worker while
+        that worker is alive with a free slot; the rest fill the remaining
+        targets in order."""
         targets = self.load_targets(moe_index)
         if not targets:
             raise RuntimeError("no alive workers in the fleet")
+        plan = self.plan
+        if plan is not None and plan.expert_workers is not None:
+            avail = list(targets)
+            pinned: List[Optional[int]] = []
+            for e in experts:
+                w = plan.worker_of(moe_index, e)
+                if w is not None and w in avail:
+                    avail.remove(w)
+                    pinned.append(w)
+                else:
+                    pinned.append(None)
+            out: List[Tuple[int, int]] = []
+            j = 0
+            for e, w in zip(experts, pinned):
+                if w is None:
+                    pool = avail if avail else targets
+                    w = pool[j % len(pool)]
+                    j += 1
+                out.append((e, w))
+            return out
         return [(e, targets[j % len(targets)]) for j, e in enumerate(experts)]
+
+    def place(self, moe_index: int, experts: Sequence[int],
+              reserved: Optional[Dict[int, int]] = None) -> List[Tuple[int, int]]:
+        """Predicted-load placement: the base walk over ``load_targets``
+        without a plan's affinity.  With it, each predicted expert lands on
+        its planned worker while that worker has a free slot; the rest pair
+        with the remaining slots in preference order, and the overflow is
+        dropped for the reload path as in the base placement."""
+        plan = self.plan
+        if plan is None or plan.expert_workers is None:
+            return super().place(moe_index, experts, reserved)
+        budget = dict(reserved) if reserved else {}
+        slots: List[int] = []
+        for w in self.load_targets(moe_index):
+            if budget.get(w, 0) > 0:
+                budget[w] -= 1
+                continue
+            slots.append(w)
+        placed: List[Tuple[int, int]] = []
+        overflow: List[int] = []
+        for e in experts:
+            w = plan.worker_of(moe_index, e)
+            if w is not None and w in slots:
+                slots.remove(w)
+                placed.append((e, w))
+            else:
+                overflow.append(e)
+        placed.extend(zip(overflow, slots))
+        return placed
 
     # ------------------------------------------------------ Eq. 1, per link
     def t_load_s(self, worker: int, expert_bytes: float,

@@ -14,7 +14,14 @@ Continuous-batching mode (``repro_torch.serve``), enabled by
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \
       --arrival-rate 2.0 --max-batch 4 [--kv-pages 24 --page-tokens 16]
 
-Both run real prefill + decode through ``ODMoEEngine`` (prediction,
+Cluster mode (``repro_torch.serve.cluster``): N replica loops over one
+shared worker fleet and expert store, with optional gate-statistics
+expert placement and compute-vs-ship:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 \
+      --replicas 2 --routing least_loaded --placement gate-stats --compute-vs-ship
+
+All run real prefill + decode through ``ODMoEEngine`` (prediction,
 on-demand loading, alignment, eviction) on the registry config's
 reduced variant and check the tokens against the dense reference under
 the same transport policy (per request, against its solo decode, in
@@ -25,11 +32,15 @@ measurement).  ``--packed-slots`` keeps wire-format experts in the
 worker slots and computes them with the in-register-dequant kernel;
 ``--token-period`` / ``--kv-period`` set how often the SEP shadow aligns
 its token and KV with the main model; ``--speculate k`` decodes in
-shadow-drafted waves of k positions and prints the acceptance.  Cluster
-mode (``--replicas > 1``) waits for placement and compute-vs-ship
-(ROADMAP.md queue 1, "placement and compute-vs-ship, then
-serve/cluster.py").  As in the JAX package, the command line has no
-fault flags: fleet profiles and fault scripts are engine options.
+shadow-drafted waves of k positions and prints the acceptance.
+``--placement gate-stats`` calibrates a ``GateStatsRecorder`` on a short
+decode of a prompt drawn from ``--seed`` + 2 (by this package's generator,
+so the plan can differ from the JAX command line's, whose prompt comes
+from JAX's) and places the experts with ``optimize_placement``;
+``--compute-vs-ship`` computes a cold expert on the main node when
+streaming it from host memory beats its worker's link.  As in the JAX
+package, the command line has no fault flags: fleet profiles and fault
+scripts are engine options.
 """
 from __future__ import annotations
 
@@ -45,6 +56,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import (RTX3090_EDGE, AlignmentPolicy, ODMoEEngine, node_memory_report,
                               simulate_cached, simulate_odmoe)
 from repro_torch.device import resolve_device
+from repro_torch.fleet import (FleetSchedule, GateStatsRecorder, expected_t_maxload, modulo_plan,
+                               optimize_placement)
 from repro_torch.kernels.flash_decode import flash_decode_kernel
 from repro_torch.kernels.int8_matmul import int8_matmul_kernel
 from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_packed_kernel
@@ -52,7 +65,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 from repro_torch.models import greedy_generate, init_params
 from repro_torch.quant import TieredPolicy, UniformPolicy
 from repro_torch.serve import (BatchComposer, KVPool, ServingLoop, WorkloadSpec,
-                               dense_cache_footprint, make_trace, make_traffic)
+                               dense_cache_footprint, make_cluster, make_trace, make_traffic)
+from repro_torch.serve.cluster import ROUTING_POLICIES
 
 MODELLED = f"modelled ({RTX3090_EDGE.name} profile, not measured)"
 # every hand-written kernel of the port, by name; as in the JAX package,
@@ -123,8 +137,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = dense per-request buffers)")
     ap.add_argument("--page-tokens", type=int, default=16,
                     help="KV slots per page (with --kv-pages)")
+    # ------------------------------------------------- cluster mode flags
     ap.add_argument("--replicas", type=int, default=1,
-                    help="serving replicas over one fleet (cluster mode, not ported)")
+                    help="serving replicas over one shared worker fleet and expert store "
+                         "(> 1 routes the --requests traffic through ClusterRouter)")
+    ap.add_argument("--routing", default="least_loaded", choices=list(ROUTING_POLICIES),
+                    help="per-request replica routing policy (with --replicas > 1)")
+    ap.add_argument("--placement", default="modulo", choices=["modulo", "gate-stats"],
+                    help="expert placement: 'modulo', the paper's i mod G mapping; "
+                         "'gate-stats', a plan optimized on gate statistics from a short "
+                         "calibration decode (same tokens either way)")
+    ap.add_argument("--compute-vs-ship", action="store_true",
+                    help="compute a cold expert on the main node when streaming it from "
+                         "host memory beats its worker's link (same weights, same tokens)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain PyTorch path")
     return ap
@@ -187,6 +212,57 @@ def print_prefetch_report(eng) -> None:
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in rep.items()))
 
 
+def build_placement(cfg, params, args):
+    """--placement gate-stats: calibrate a ``GateStatsRecorder`` on a
+    short decode without a predictor, optimize the placement on it, and
+    return a ``FleetSchedule`` carrying the plan (None for 'modulo')."""
+    if args.placement != "gate-stats":
+        return None
+    device = params["embed"]["table"].device
+    cal = GateStatsRecorder()
+    eng = ODMoEEngine(cfg, params, n_workers=args.workers, predictor="none", gate_stats=cal,
+                      device=device)
+    eng.generate(_prompt(cfg, args.prompt_len, args.seed + 2, device), max(8, args.tokens // 2))
+    expert_bytes = eng.store.expert_bytes
+    del eng
+    g = max(cfg.top_k, 1)
+    base = FleetSchedule(args.workers, g)
+    kw = dict(num_experts=cfg.num_experts, n_moe=cal.n_layers)
+    bkw = dict(kw, expert_bytes=expert_bytes)
+    plan = optimize_placement(cal, base, **bkw)
+    e_opt = expected_t_maxload(plan, cal, base, **bkw)
+    e_mod = expected_t_maxload(modulo_plan(base, **kw), cal, base, **bkw)
+    print(f"  placement: gate-stats plan over {cal.n_layers} MoE layers; expected t_maxload "
+          f"{e_opt * 1e3:.4f} ms vs modulo {e_mod * 1e3:.4f} ms (modelled, "
+          f"{base.link_gbps_of(0):g} GB/s links)")
+    return FleetSchedule(args.workers, g, plan=plan)
+
+
+def engine_kwargs(cfg, params, args, transport) -> dict:
+    """``ODMoEEngine`` keywords shared by the single-stream, serving and
+    cluster paths: predictor, transport, the placement schedule (or the
+    worker count) and compute-vs-ship."""
+    kw = dict(predictor=args.predictor, shadow_scheme=args.shadow, seed=args.seed,
+              transport=transport, device=params["embed"]["table"].device,
+              packed_slots=args.packed_slots, speculate=args.speculate)
+    sched = build_placement(cfg, params, args)
+    if sched is not None:
+        kw["sched"] = sched
+    else:
+        kw["n_workers"] = args.workers
+    if args.compute_vs_ship:
+        kw["compute_vs_ship"] = True
+    return kw
+
+
+def print_hosted(trace) -> None:
+    """How many experts compute-vs-ship kept on the main node."""
+    hosted = sum(len(lr.hosted) for rec in trace.records for lr in rec.layers)
+    if hosted:
+        print(f"  compute-vs-ship: {hosted} experts computed on the main node over "
+              f"{len(trace.records)} steps ({hosted / len(trace.records):.3f} per step)")
+
+
 def serve_single(cfg, params, args) -> dict:
     """Decode one random prompt with the engine and with the dense
     reference; print the comparison and the engine's accounting.
@@ -195,11 +271,9 @@ def serve_single(cfg, params, args) -> dict:
     device = params["embed"]["table"].device
     batch = _prompt(cfg, args.prompt_len, args.seed, device)
     transport = build_transport(cfg, params, args)
+    kw = engine_kwargs(cfg, params, args, transport)
     launches0 = _launches()
-    eng = ODMoEEngine(cfg, params, n_workers=args.workers,
-                      predictor=args.predictor, shadow_scheme=args.shadow,
-                      seed=args.seed, transport=transport, device=device,
-                      packed_slots=args.packed_slots, speculate=args.speculate)
+    eng = ODMoEEngine(cfg, params, **kw)
     _sync(device)
     t0 = time.perf_counter()
     toks, trace = eng.generate(batch, args.tokens,
@@ -223,6 +297,7 @@ def serve_single(cfg, params, args) -> dict:
         print(f"  speculation k={args.speculate}: acceptance "
               f"{committed / max(drafted, 1):.3f} over {len(trace.records)} waves")
     print(f"  loads: {eng.slots.stats}")
+    print_hosted(trace)
     print(f"  bytes moved [{eng.transport.describe()}]: {eng.slots.bytes_moved} "
           f"({eng.slots.bytes_moved / 1e9:.3f} GB over "
           f"{eng.slots.stats['loads']} loads)")
@@ -308,17 +383,11 @@ def serve_traffic(cfg, params, args, **engine_options) -> dict:
     device the peak of allocated memory while building the engine and the
     pool (``build_peak_bytes``) and while serving (``serving_peak_bytes``);
     both are None on the host."""
-    if args.replicas > 1:
-        raise NotImplementedError("cluster serving (--replicas > 1) is not ported yet "
-                                  "(ROADMAP.md queue 1: placement and compute-vs-ship, "
-                                  "then serve/cluster.py)")
     device = params["embed"]["table"].device
     transport = build_transport(cfg, params, args)
+    kw = dict(engine_kwargs(cfg, params, args, transport), **engine_options)
     launches0 = _launches()
-    eng = ODMoEEngine(cfg, params, n_workers=args.workers, predictor=args.predictor,
-                      shadow_scheme=args.shadow, seed=args.seed, transport=transport,
-                      device=device, packed_slots=args.packed_slots, speculate=args.speculate,
-                      **engine_options)
+    eng = ODMoEEngine(cfg, params, **kw)
     reqs = build_requests(cfg, args)
     kv_pool = (KVPool(cfg, num_pages=args.kv_pages, page_tokens=args.page_tokens,
                       device=device) if args.kv_pages else None)
@@ -371,6 +440,7 @@ def serve_traffic(cfg, params, args, **engine_options) -> dict:
               f"multi-request loads: {sum(1 for s in served if s > 1)}/{len(served)}  "
               f"loads/step: {len(ev) / max(len(res.steps), 1):.3f}")
     print(f"  load stats: {eng.slots.stats}")
+    print_hosted(res.trace)
     print_transport_stats(eng)
     print_prefetch_report(eng)
     if kv_pool is not None:
@@ -409,6 +479,55 @@ def serve_traffic(cfg, params, args, **engine_options) -> dict:
             "build_peak_bytes": build_peak, "serving_peak_bytes": serving_peak}
 
 
+def serve_cluster(cfg, params, args, **engine_options) -> dict:
+    """Serve ``--requests`` through ``--replicas`` replicas
+    (``make_cluster``: one store, one fleet schedule, one gate-stats
+    recorder, dense KV), check every request against its solo decode, and
+    print the cluster report (modelled), each replica's rows and measured
+    composed-step times.  Returns the result, the router, the requests,
+    the recorder and the kernel launches on the serving and the reference
+    side."""
+    device = params["embed"]["table"].device
+    transport = build_transport(cfg, params, args)
+    gate_stats = GateStatsRecorder()
+    kw = dict(engine_kwargs(cfg, params, args, transport), gate_stats=gate_stats,
+              **engine_options)
+    reqs = build_requests(cfg, args)
+    launches0 = _launches()
+    router = make_cluster(cfg, params, replicas=args.replicas, policy=args.routing,
+                          engine_kw=kw, loop_kw=dict(max_batch=args.max_batch))
+    res = router.run(reqs)
+    _sync(device)
+    launches1 = _launches()
+    check_bit_exact(cfg, params, reqs, res.outputs, transport)
+    launches2 = _launches()
+    rep = res.report()
+    print(f"  cluster: {rep['replicas']} replicas, routing={res.policy}, requests: "
+          f"{rep['n_requests']}, tokens: {rep['total_tokens']}")
+    for m in ("ttft", "tpot"):
+        print(_percentile_line(rep, m))
+    print(f"  throughput: {rep['throughput_tok_s']:.2f} tok/s over {rep['makespan_s']:.3f} s "
+          f"makespan [{MODELLED}]")
+    for i, (rr, r) in enumerate(zip(rep["per_replica"], res.replicas)):
+        by_b = defaultdict(list)
+        for st in r.steps:
+            by_b[len(st.request_ids)].append(st.wall_s)
+        print(f"  [replica {i}] n={rr['requests']}  mean batch {rr['mean_batch']:.2f}  "
+              f"TTFT p95 {rr['ttft_p95_s'] * 1e3:.2f} ms [{MODELLED}]; measured composed "
+              f"step on {device}: " + ", ".join(
+                  f"B={b} {statistics.median(ts) * 1e3:.3f} ms (n={len(ts)})"
+                  for b, ts in sorted(by_b.items())))
+        print_hosted(r.trace)
+    if res.autoscale_events:
+        print(f"  autoscale events: {res.autoscale_events}")
+    print(f"  pooled gate stats: {gate_stats.n_layers} MoE layers, "
+          f"{sum(gate_stats.rows.values())} routed rows")
+    serving, reference = _since(launches0, launches1), _since(launches1, launches2)
+    print(f"  kernel launches: serving (engines+shadows) {serving}, reference {reference}")
+    return {"result": res, "router": router, "requests": reqs, "gate_stats": gate_stats,
+            "launches_serving": serving, "launches_reference": reference}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -421,14 +540,19 @@ def main(argv=None):
     params = init_params(cfg, seed=args.seed, device=device)
     mode = (f"continuous batching: {args.requests} {args.workload} requests @ "
             f"{args.arrival_rate}/s, max-batch {args.max_batch} ({args.compose})"
+            + (f", {args.replicas} replicas ({args.routing})" if args.replicas > 1 else "")
             if args.requests else "single stream")
     print(f"[serve] {cfg.name} on {device}: E={cfg.num_experts} top{cfg.top_k}, "
           f"{args.workers} workers, predictor={args.predictor}"
           + (f"/{args.shadow}" if args.predictor == "sep" else "")
           + f", transport={args.transport_precision}"
           + (", packed slots" if args.packed_slots else "")
-          + (f", speculate {args.speculate}" if args.speculate > 1 else "") + f" — {mode}")
-    if args.requests:
+          + (f", speculate {args.speculate}" if args.speculate > 1 else "")
+          + f", placement={args.placement}"
+          + (", compute-vs-ship" if args.compute_vs_ship else "") + f" — {mode}")
+    if args.requests and args.replicas > 1:
+        serve_cluster(cfg, params, args)
+    elif args.requests:
         serve_traffic(cfg, params, args)
     else:
         serve_single(cfg, params, args)

@@ -1,6 +1,5 @@
 """Continuous-batching serving over the cacheless OD-MoE engine
-(``repro.serve`` without its cluster router, which waits for placement
-and compute-vs-ship, ROADMAP.md queue 1):
+(``repro.serve``):
 
   * ``request``: ``Request`` / ``RequestState`` / ``RequestQueue`` and the
     ``make_traffic`` mix: arrival, admission, per-request decode and
@@ -14,10 +13,16 @@ and compute-vs-ship, ROADMAP.md queue 1):
   * ``workload``: trace-driven multi-tenant traffic;
   * ``loop``: ``ServingLoop``: prefill on admission, composed decode,
     budget-aware admission with preemption and page-exact resume, on the
-    modelled clock (TTFT/TPOT/throughput) beside measured step times.
+    modelled clock (TTFT/TPOT/throughput) beside measured step times;
+  * ``cluster``: ``ClusterRouter`` and ``make_cluster``: N replica loops
+    over one shared worker fleet, expert store and gate statistics,
+    per-request routing (least-loaded, weighted, round-robin), an
+    autoscaling hook, and merged per-replica and cluster-wide reports.
 
-Guarantee: per-request outputs equal solo decoding.
+Guarantee: per-request outputs equal solo decoding; batch composition,
+deferral, preemption, replica routing and placement are scheduling.
 """
+from .cluster import ClusterResult, ClusterRouter, make_cluster
 from .composer import BatchComposer
 from .kvpool import (KVPool, KVPoolStats, PagedCacheBatch, PagedRequestCache, PoolExhausted,
                      dense_cache_footprint)
@@ -27,7 +32,8 @@ from .workload import (DEFAULT_TENANTS, TenantClass, WorkloadSpec, bursty_arriva
                        diurnal_arrivals, heavy_tail_lengths, make_trace)
 
 __all__ = [
-    "BatchComposer", "KVPool", "KVPoolStats", "PagedCacheBatch", "PagedRequestCache",
+    "BatchComposer", "ClusterResult", "ClusterRouter", "make_cluster",
+    "KVPool", "KVPoolStats", "PagedCacheBatch", "PagedRequestCache",
     "PoolExhausted", "dense_cache_footprint", "ServeResult", "ServingLoop", "StepRecord",
     "preemption_victim", "Request", "RequestQueue", "RequestState", "make_traffic",
     "DEFAULT_TENANTS", "TenantClass", "WorkloadSpec", "bursty_arrivals", "diurnal_arrivals",

@@ -49,9 +49,11 @@ at the global composed-step index (``StepRecord.step``), every request
 still equals its solo decode, ``StepRecord.alive_workers`` records the
 fleet's liveness after each step's faults, and
 ``ServeResult.degraded_report()`` splits the modelled step times into
-healthy- and degraded-fleet steps.  Not ported: the cluster router, which
-waits for placement and compute-vs-ship (ROADMAP.md queue 1, "placement
-and compute-vs-ship, then serve/cluster.py").
+healthy- and degraded-fleet steps.  ``run`` is ``start``, ``tick`` until
+nothing is left, ``finish``; the cluster router
+(``repro_torch.serve.cluster``) instead starts each replica with a clock
+of its own over a shared fleet timeline, feeds arrivals through
+``add_request`` and interleaves the replicas' ticks.
 """
 from __future__ import annotations
 
@@ -355,14 +357,20 @@ class ServingLoop:
             state.pending = (p_i, s_i, at, ak, drafts[i:i + 1].clone())
 
     # --------------------------------------------------------------- run
-    def start(self, requests: Sequence[Request]) -> None:
-        """Set up a session: window, queue, clock and counters."""
+    def start(self, requests: Sequence[Request], *, clock: Optional[DecodeClock] = None,
+              cache_len: Optional[int] = None) -> None:
+        """Set up a session without driving it: window, queue, clock and
+        counters.  A cluster router passes each replica its own ``clock``
+        (sharing one ``worker_free`` fleet timeline) and a cluster-wide
+        ``cache_len``, which an empty request set requires; ``max_seq_len``
+        and the KV pool's window apply after it."""
         eng = self.engine
         requests = list(requests)
-        if not requests:
-            raise ValueError("start needs at least one request")
-        cache_len = self.max_seq_len or (
-            max(len(r.prompt) + r.max_new_tokens for r in requests) + 2)
+        if cache_len is None:
+            if not requests:
+                raise ValueError("cache_len is required to start with an empty request set")
+            cache_len = max(len(r.prompt) + r.max_new_tokens for r in requests) + 2
+        cache_len = self.max_seq_len or cache_len
         if self.kv_pool is not None:
             self.kv_pool.reset()
             # one page-aligned window for every request (the extra tail
@@ -370,10 +378,7 @@ class ServingLoop:
             cache_len = self.kv_pool.set_window(cache_len)
         self._cache_len = cache_len
         self._queue = RequestQueue(requests)
-        self._clock = DecodeClock(eng.cfg, eng.sched, self.profile,
-                                  shadow_scheme=(eng.shadow.scheme if eng.shadow else "int8"),
-                                  predictor=eng.predictor_kind, transport=eng.transport,
-                                  packed_compute=eng.packed_slots)
+        self._clock = clock if clock is not None else self._new_clock()
         self._trace = Trace()
         self._steps: List[StepRecord] = []
         self._deferred = _AdmissionQueue(self.admit_policy)
@@ -381,12 +386,37 @@ class ServingLoop:
         self._swap_s = 0.0
         self._step = 0
 
-    def _has_work(self) -> bool:
+    def _new_clock(self, worker_free: Optional[Dict[int, float]] = None) -> DecodeClock:
+        """The modelled clock this loop's engine is priced on; a cluster
+        router passes the fleet's shared ``worker_free`` timelines."""
+        eng = self.engine
+        return DecodeClock(eng.cfg, eng.sched, self.profile,
+                           shadow_scheme=(eng.shadow.scheme if eng.shadow else "int8"),
+                           predictor=eng.predictor_kind, transport=eng.transport,
+                           packed_compute=eng.packed_slots, worker_free=worker_free)
+
+    def add_request(self, req: Request) -> None:
+        """Enqueue a request into a started session; it is admitted when
+        the clock passes its arrival, as an initial request is."""
+        self._queue.add(req)
+
+    def has_work(self) -> bool:
+        """Whether the session has anything left to serve (what ``tick``
+        checks first; a cluster router parks a replica without work)."""
         return not self._queue.all_done or bool(self._deferred)
+
+    @property
+    def clock(self) -> DecodeClock:
+        return self._clock
+
+    @property
+    def finished(self) -> Dict[int, RequestState]:
+        """The session's retired requests by id."""
+        return self._queue.finished
 
     def tick(self) -> bool:
         """One iteration of the loop; False when nothing is left."""
-        if not self._has_work():
+        if not self.has_work():
             return False
         queue, clock = self._queue, self._clock
         deferred, cache_len = self._deferred, self._cache_len

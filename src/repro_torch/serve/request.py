@@ -149,6 +149,15 @@ class RequestQueue:
     def next_arrival_s(self) -> Optional[float]:
         return self._pending[0][0] if self._pending else None
 
+    def add(self, req: Request) -> None:
+        """Enqueue one more pending arrival (the cluster router feeds a
+        started queue online); a request id already pending, active or
+        finished is rejected."""
+        if (req.rid in self._active or req.rid in self.finished
+                or any(rid == req.rid for _, rid, _ in self._pending)):
+            raise ValueError(f"request id {req.rid} already in the queue")
+        heapq.heappush(self._pending, (req.arrival_s, req.rid, req))
+
     def pop_arrived(self, now: float) -> List[Request]:
         """Remove and return every pending request with ``arrival_s <=
         now``, in arrival order."""

@@ -28,8 +28,8 @@ def prompt(cfg, seed: int, length: int = 12):
 
 def torch_trace(trace):
     """A JAX engine ``Trace`` as the port's ``Trace``: the same records
-    (tokens, routing, predictions, gates, waves, wave widths and commits),
-    as numpy."""
+    (tokens, routing, predictions, gates, waves, hosted experts, wave widths
+    and commits), as numpy."""
     from repro_torch.core import LayerRecord, TokenRecord, Trace
 
     def arr(a):
@@ -47,7 +47,8 @@ def torch_trace(trace):
                 correct=lr.correct, reloads=lr.reloads,
                 assignments=list(lr.assignments),
                 waves=[list(w) for w in (lr.waves or [])],
-                touched=tuple(lr.touched), gates=arr(lr.gates)))
+                touched=tuple(lr.touched), gates=arr(lr.gates),
+                hosted=tuple(getattr(lr, "hosted", ()))))
         out.records.append(tr)
     return out
 

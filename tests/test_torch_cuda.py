@@ -1072,3 +1072,97 @@ def test_fleet_engine_on_the_card_equals_greedy(dev):
     assert (eng.slots.stats["failures"], eng.slots.stats["recoveries"]) == (1, 1)
     assert len(eng.faults.applied) == 3
     assert eng.memory_report()["per_worker_bytes"] == 2 * eng.store.expert_bytes
+
+
+# ------------------------------------------------- compute-vs-ship, cluster
+def _hosted_inputs(dev, eng, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    true = np.stack([rng.choice(8, 2, replace=False) for _ in range(3)]).astype(np.int32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((3, FLEET.d_model), generator=g, device=dev)
+    gates = torch.rand((3, 2), generator=g, device=dev)
+    return h, true, gates, eng.store.moe_layers[1]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_hosted_contributions_equal_the_slot_wave_bitwise(dev, packed):
+    """An expert computed on the main node from the store's shard gives the
+    slot wave's contributions bit for bit: full-width slots through the
+    same kernel, packed int8 slots through the packed kernel against the
+    full-width kernel on the dequantized shard."""
+    params = init_params(FLEET, seed=3, device=dev)
+    eng = ODMoEEngine(FLEET, params, device=dev, transport="int8" if packed else None,
+                      packed_slots=packed)
+    h, true, gates, li = _hosted_inputs(dev, eng, 5)
+    experts = sorted({int(e) for e in true.reshape(-1)})
+    for w, e in enumerate(experts):
+        eng.slots.load(0, li, e, w, predicted=False)
+    kernel = moe_ffn_packed_kernel if packed else moe_ffn_kernel
+    before, full = kernel.launches, moe_ffn_kernel.launches
+    slot = eng._compute_wave(li, h, true, gates, {e: w for w, e in enumerate(experts)}, None)
+    assert kernel.launches > before
+    hosted = eng._compute_hosted(li, h, true, gates, experts[::-1], None)
+    assert moe_ffn_kernel.launches > full + (0 if packed else 1)
+    assert torch.equal(hosted, slot)
+    part = eng._compute_hosted(li, h, true, gates, experts[:1], None)
+    rest = eng._compute_wave(li, h, true, gates, {e: experts.index(e) for e in experts[1:]},
+                             part)
+    assert torch.equal(rest, slot)                       # any split between the two paths
+
+
+def test_hosted_stack_is_freed_after_the_call(dev):
+    """The hosted stack is transient: allocated memory returns to its value
+    before the call, and the call's peak holds the stack, one shard and the
+    contributions, no more."""
+    params = init_params(FLEET, seed=3, device=dev)
+    eng = ODMoEEngine(FLEET, params, device=dev, compute_vs_ship=True)
+    h, true, gates, li = _hosted_inputs(dev, eng, 7)
+    experts = sorted({int(e) for e in true.reshape(-1)})
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = eng._compute_hosted(li, h, true, gates, experts, None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    out_bytes = out.numel() * out.element_size()
+    assert peak <= (len(experts) + 1) * eng.store.expert_bytes + 2 * out_bytes + (1 << 20)
+    del out
+    assert torch.cuda.memory_allocated(dev) == before
+    assert eng.slots.events == [] and eng.slots.bytes_moved == 0
+
+
+def test_two_replicas_on_the_card_equal_solo_greedy(dev):
+    """Two replicas over one store and one fleet, least-loaded, then
+    round-robin under a plan with compute-vs-ship on 24 GB/s links: every
+    request equals its solo ``greedy_generate``, both replicas serve, and
+    the waves and attention ran on the kernels."""
+    from repro_torch.fleet import FleetSchedule, GateStatsRecorder, optimize_placement
+    from repro_torch.serve import make_cluster
+    params = init_params(FLEET, seed=5, device=dev)
+    reqs = make_traffic(FLEET, 6, 0.0, prompt_len=12, max_new=6, seed=2)
+    solo = {r.rid: greedy_generate(FLEET, params, {"tokens": torch.as_tensor(
+        r.prompt, device=dev)[None]}, r.max_new_tokens)[0].cpu().numpy() for r in reqs}
+    rec = GateStatsRecorder()
+    links = tuple(WorkerProfile(w, link_gbps=24.0) for w in range(8))
+    runs = [dict(policy="least_loaded",
+                 engine_kw=dict(n_workers=8, predictor="sep", device=dev, gate_stats=rec))]
+    for run in range(2):
+        if run == 1:
+            plan = optimize_placement(rec, FleetSchedule(8, 2), num_experts=8, n_moe=4)
+            runs.append(dict(policy="round_robin", engine_kw=dict(
+                sched=FleetSchedule(8, 2, profiles=links, plan=plan), predictor="sep",
+                device=dev, compute_vs_ship=True)))
+        before = (moe_ffn_kernel.launches, flash_decode_kernel.launches)
+        router = make_cluster(FLEET, params, replicas=2, loop_kw=dict(max_batch=4),
+                              **runs[run])
+        res = router.run(reqs)
+        assert moe_ffn_kernel.launches > before[0] and flash_decode_kernel.launches > before[1]
+        for r in reqs:
+            assert (res.outputs[r.rid] == solo[r.rid]).all(), (run, r.rid)
+        assert sorted(set(res.assignments.values())) == [0, 1]
+        engines = [l.engine for l in router.loops]
+        assert engines[0].store is engines[1].store and engines[0].sched is engines[1].sched
+    assert rec.n_layers == 4
+    assert sum(len(lr.hosted) for r in res.replicas for s in r.trace.records
+               for lr in s.layers) > 0

@@ -166,19 +166,12 @@ def test_shared_store_of_another_policy_raises_as_jax_does(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"compute_vs_ship": True}, "placement and compute-vs-ship, then serve/cluster.py"),
-    ({"wave_compute": "loop"}, "the wave_compute='loop' oracle"),
-    ({"plan": object()}, "placement and compute-vs-ship, then serve/cluster.py")])
+    ({"wave_compute": "loop"}, "the wave_compute='loop' oracle")])
 def test_unported_engine_options_raise(setup, kw, item):
-    """Each unported option names its ROADMAP.md queue 1 item; a placement
-    plan is refused by the fleet schedule the engine would run on."""
-    from repro_torch.fleet import FleetSchedule
+    """Each unported option names its ROADMAP.md queue 1 item."""
     _, _, tcfg, tparams, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        if "plan" in kw:
-            ODMoEEngine(tcfg, tparams, device="cpu", sched=FleetSchedule(8, 2, **kw))
-        else:
-            ODMoEEngine(tcfg, tparams, device="cpu", **kw)
+        ODMoEEngine(tcfg, tparams, device="cpu", **kw)
     assert item in str(err.value)
 
 

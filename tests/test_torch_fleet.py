@@ -199,8 +199,13 @@ def test_validation_errors_match_jax(case):
 
 
 def test_placement_plan_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="placement and compute-vs-ship"):
-        FleetSchedule(8, 2, plan=object())
+    """A plan sized for another fleet is refused, as in the JAX package."""
+    from repro.fleet import FleetSchedule as JFleetSchedule, uniform_plan as juniform_plan
+    from repro_torch.fleet import uniform_plan
+    for sched, plan in ((JFleetSchedule, juniform_plan), (FleetSchedule, uniform_plan)):
+        with pytest.raises(ValueError, match="plan sized for a different fleet"):
+            sched(8, 2, plan=plan(6, 2))
+        assert sched(8, 2, plan=plan(8, 2)).plan.n_workers == 8
 
 
 # ================================================================ faults

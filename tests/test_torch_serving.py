@@ -28,6 +28,7 @@ from repro.serve import make_traffic as jmake_traffic
 from repro_torch.core import (ODMoEEngine, TokenRecord, concat_cache_lists,
                               concat_shadow_states, node_memory_report, slice_shadow_state)
 from repro_torch.launch.serve import build_parser, serve_traffic
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import greedy_generate
 from repro_torch.serve import (BatchComposer, KVPool, PoolExhausted, Request, RequestQueue,
                                RequestState, ServingLoop, WorkloadSpec, dense_cache_footprint,
@@ -334,11 +335,11 @@ def test_shadow_state_concat_slice_round_trip(served):
     assert concat_shadow_states(states[:1]) is states[0]
 
 
-def test_unported_serving_options_raise(served):
-    tcfg, tparams = served["tcfg"], served["tparams"]
-    args = build_parser().parse_args(["--requests", "2", "--replicas", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        serve_traffic(tcfg, tparams, args)
+def test_unported_serving_options_raise():
+    """``--replicas 2`` without ``--requests`` exits before building
+    anything, as the JAX launcher does."""
+    with pytest.raises(SystemExit, match="needs --requests"):
+        serve_main(["--replicas", "2", "--device", "cpu"])
 
 
 def test_cli_serving_mode_on_the_host(served, capsys):
