@@ -150,6 +150,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
              hosts at least one expert.  Prints the modelled cluster report,
              each replica's requests and mean batch, composed-step times by B
              beside the serve phase's, launches and peak memory.
+8j. long   — ``serve_single`` on the slice's parameters with a 3000-token
+             prompt (its 4096 bucket: every attention prefill runs the
+             blockwise online-softmax path) and 8 tokens: engine tokens equal
+             ``greedy_generate``, moe_ffn and flash_decode launched on both
+             sides.  Prints TPOT, the engine's prefill, flash decode at
+             W=3008 beside its bound, plain version and
+             ``scaled_dot_product_attention``, and one attention layer's
+             prefill blockwise at T=4096 beside the full path at T=2048.
 9. packed slice — ``serve_single`` with ``--packed-slots`` at Mixtral-8x7B
              width in fp32 (2 layers), transport int8, nf4 and tiered in
              turn: engine tokens equal ``greedy_generate`` under the same
@@ -157,7 +165,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
              are the packed payload of the largest resident shard.
 10. ssd    — the SSD inter-chunk scan kernel against its plain version at
              Jamba's Mamba shape (H=128, P=64, N=128; B in {1,4}, NC in
-             {1,4,8}; zero start and a given h0) and at an odd shape (a
+             {1,4,8,12}; zero start and a given h0) and at an odd shape (a
              ragged float4 tail): bitwise equal, each batch row equal to
              its own B=1 launch; P*N not a multiple of 4 and a misaligned
              pointer must be refused; timed beside its bytes bound and its
@@ -175,6 +183,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
              windows over the one attention layer; every request equals its
              solo ``greedy_generate``, the pool preempts and resumes, the
              three kernels launched on both sides.
+12a. jamba-long — the jamba-slice parameters with a 3000-token prompt (a
+             hybrid never pads: attention blockwise at 3000, the SSD scan
+             over 12 chunks) and 8 tokens: engine tokens equal
+             ``greedy_generate``; the three kernels launched on both sides.
+12b. qwen3 — qwen3-moe-30b-a3b at full width (128 experts top-8, D=2048,
+             F=768, 32/4 heads of 128), 8 of 48 layers, bf16, SEP int8
+             shadow, 16 workers (two groups of 8), prompt 16, 8 tokens:
+             engine tokens equal ``greedy_generate``.  Prints TPOT, the parts
+             of a token, the prefill, the modelled OD-MoE, fully-cached,
+             offload-cache (LRU and LFU, a third of the experts cached) and CPU
+             tokens/s on the phase's own trace, and kernel 1 at qwen3's widths
+             (E/C 8/1, 128/1, 128/16) beside its bound.
+12c. qwen3-serve — the serve phase's traffic (seed 4, 8 requests at t=0,
+             prompts 64-127, max batch 4) on the qwen3 parameters, dense KV,
+             16 workers: every request equals its solo decode; composed-step
+             times by B, and flash decode at B=4 W=144 with G=8.
+12d. granite — granite-moe-3b-a800m at full width and depth (32 layers, 40
+             experts in 48 padded rows, top-8, D=1536, F=512, 24/8 heads of
+             64, tied embeddings), 16 workers, prompt 16, 8 tokens: engine
+             tokens equal ``greedy_generate`` and the store holds the 40
+             routed experts only.  Prints TPOT, the parts of a token, the
+             prefill, flash decode at G=3 Hd=64 and kernel 1 at granite's
+             widths (E/C 8/1, 64/1, 64/16).
 13. int8   — the w8a16 matmul kernel against its plain version at the JAX
              tests' shapes (32x128x64, 64x256x96, ragged 13x70x33) and the
              Mixtral-8x7B expert matrices (4096x14336, 14336x4096) with M in
@@ -214,6 +245,8 @@ N_KV, GROUP, HEAD_DIM = 8, 4, 128  # Mixtral-8x7B attention: 8 kv heads, 32 quer
 KERNEL_TOL = 1e-4                 # max|k - p| / max|p|: fp32 sums in two orders
 INT8_TOL = 1e-5                   # the same for the w8a16 matmul (scaled after its sum)
 SSD_TOL = 1e-6                    # the scan's second check, after bitwise equality
+LONG_PROMPT, LONG_TOKENS = 3000, 8   # past the 2048-token threshold: blockwise attention
+JAMBA_LONG_CHUNKS = -(-LONG_PROMPT // 256)   # the SSD scan's chunks at Jamba's chunk of 256
 
 
 def fail(msg: str) -> None:
@@ -270,11 +303,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(e: int, c: int, weight_bytes: int) -> tuple:
+def bound_ms(e: int, c: int, weight_bytes: int, d: int = D_MODEL, f: int = D_EXPERT) -> tuple:
     """Least time for the grouped FFN: each input read once (x fp32, three
     weight matrices), the output written once, against fp32 FMAs."""
-    nbytes = 4 * e * c * D_MODEL * 2 + 3 * e * D_MODEL * D_EXPERT * weight_bytes
-    flops = 2 * 3 * e * c * D_MODEL * D_EXPERT
+    nbytes = 4 * e * c * d * 2 + 3 * e * d * f * weight_bytes
+    flops = 2 * 3 * e * c * d * f
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -666,17 +699,18 @@ def median_ms(fn, iters: int = 25, warmup: int = 3, device_only: bool = True,
     return statistics.median(times)
 
 
-def flash_inputs(b, w, dtype, seed, fill=0.8):
-    """Ring-buffer caches at Mixtral's attention shapes: each row's position
-    is past the window for most rows (ring wrap); slot s holds the latest
-    position congruent to s, some slots are unfilled (kpos = -1), and the
-    slot of ``pos`` itself is always valid, as on the decode path."""
+def flash_inputs(b, w, dtype, seed, fill=0.8, kh=N_KV, g=GROUP, hd=HEAD_DIM):
+    """Ring-buffer caches at Mixtral's attention shapes (or the ``kh`` kv
+    heads, ``g`` query heads each and head width ``hd`` given): each row's
+    position is past the window for most rows (ring wrap); slot s holds the
+    latest position congruent to s, some slots are unfilled (kpos = -1), and
+    the slot of ``pos`` itself is always valid, as on the decode path."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, N_KV, GROUP, HEAD_DIM), generator=gen, device=dev).to(dtype)
-    k = torch.randn((b, w, N_KV, HEAD_DIM), generator=gen, device=dev).to(dtype)
-    v = torch.randn((b, w, N_KV, HEAD_DIM), generator=gen, device=dev).to(dtype)
+    q = torch.randn((b, kh, g, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, w, kh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, w, kh, hd), generator=gen, device=dev).to(dtype)
     pos = torch.randint(w // 2, 3 * w, (b,), generator=gen, device=dev, dtype=torch.int32)
     slots = torch.arange(w, device=dev)
     kpos = pos[:, None] - (pos[:, None] - slots[None]) % w
@@ -687,11 +721,11 @@ def flash_inputs(b, w, dtype, seed, fill=0.8):
     return q, k, v, kpos.contiguous(), pos
 
 
-def flash_bound_ms(b, w, itemsize) -> tuple:
+def flash_bound_ms(b, w, itemsize, kh=N_KV, g=GROUP, hd=HEAD_DIM) -> tuple:
     """Least time for flash decode: the K and V caches and kpos read once
     (q and the output are under 0.1% of it), against fp32 FMAs."""
-    nbytes = 2 * b * w * N_KV * HEAD_DIM * itemsize + 4 * b * w
-    flops = 2 * 2 * b * w * N_KV * GROUP * HEAD_DIM
+    nbytes = 2 * b * w * kh * hd * itemsize + 4 * b * w
+    flops = 2 * 2 * b * w * kh * g * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
@@ -706,7 +740,6 @@ def phase_flash() -> dict:
     """Flash decode against its plain version, row and tail invariance,
     then timed at long windows and at the serve phase's shape."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode_kernel, flash_decode_ref
     from repro_torch.kernels.flash_decode import kernel as flash
     chunk = flash.LIBRARY.lib.flash_decode_chunk()
@@ -752,29 +785,8 @@ def phase_flash() -> dict:
                 del q, k, v, kpos, pos
     print(f"[flash] worst max|k-p|/max|p| {worst:.3e} (tolerance {KERNEL_TOL:g})")
     torch.cuda.empty_cache()
-    rows = {}
-    for b, w in ((4, 144), (16, 144), (1, 4096), (4, 32768), (16, 32768)):
-        q, k, v, kpos, pos = flash_inputs(b, w, torch.bfloat16, seed=3)
-        qs = q.reshape(b, N_KV * GROUP, 1, HEAD_DIM)
-        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        mask = ((kpos >= 0) & (kpos <= pos[:, None]))[:, None, None, :]
-        t_k = median_ms(lambda: flash_decode_kernel(q, k, v, kpos, pos))
-        t_host = median_ms(lambda: flash_decode_kernel(q, k, v, kpos, pos), device_only=False)
-        t_p = median_ms(lambda: flash_decode_ref(q, k, v, kpos, pos), iters=20)
-        t_l = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                                               enable_gqa=True))
-        b_ms, b_by, nbytes = flash_bound_ms(b, w, 2)
-        o = flash_decode_kernel(q, k, v, kpos, pos)
-        p = flash_decode_ref(q, k, v, kpos, pos)
-        torch.cuda.synchronize()
-        rows[(b, w)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
-                            max_abs_err=float((o - p).abs().max()), nbytes=nbytes,
-                            host_ms=t_host)
-        print(f"[flash] time bf16 B={b:2d} W={w:5d}: kernel {t_k:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}, {nbytes} bytes, {b_ms / t_k:.1%} of it), plain {t_p:.4f} ms, "
-              f"scaled_dot_product_attention {t_l:.4f} ms (device time, median of 25 / 20 / 25 "
-              f"launches); kernel with the host's launch time {t_host:.4f} ms", flush=True)
-        del q, k, v, kpos, pos, qs, ks, vs, mask
+    rows = {(b, w): flash_layout_row("flash", b, w, N_KV, GROUP, HEAD_DIM, seed=3)
+            for b, w in ((4, 144), (16, 144), (1, 4096), (4, 32768), (16, 32768))}
     flash_pass_profile(4, 144)
     flash_pass_profile(4, 32768)
     flash_decode_kernel.launches = 0       # comparison launches do not count
@@ -838,11 +850,9 @@ def phase_small():
 
 
 def phase_slice() -> dict:
-    import statistics
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.moe_gemm import moe_ffn_kernel
-    from repro_torch.launch.serve import _prompt, build_parser, serve_single
+    from repro_torch.launch.serve import _prompt
     from repro_torch.models import init_params
     full = get_config("mixtral-8x7b")
     cfg = dataclasses.replace(full, num_layers=4, padded_experts=0)
@@ -860,40 +870,16 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
     print(f"[slice] random bf16 parameters from seed 0: {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
-    args = build_parser().parse_args(
-        ["--prompt-len", "16", "--tokens", "8", "--predictor", "sep", "--shadow", "int8",
-         "--transport-precision", "fp32", "--workers", "8", "--seed", "0"])
-    torch.cuda.reset_peak_memory_stats()
-    moe_ffn_kernel.launches = 0
-    t0 = time.perf_counter()
-    res = serve_single(cfg, params, args)
-    launches = moe_ffn_kernel.launches
-    print(f"[slice] serve_single took {time.perf_counter() - t0:.1f} s")
-    toks = res["tokens"]
-    if tuple(toks.shape) != (1, args.tokens):
-        fail(f"engine tokens have shape {tuple(toks.shape)}")
-    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        fail("engine tokens out of the vocabulary")
-    if not torch.equal(toks.cpu(), res["reference"].cpu()):
-        fail("engine tokens differ from greedy_generate")
-    if res["launches_engine"]["moe_ffn"] <= 0 or res["launches_reference"]["moe_ffn"] <= 0:
-        fail("the main path did not go through the moe_ffn kernel on both sides")
+    args = _single_args(16, 8)
+    res = _run_single("slice", cfg, params, args, ("moe_ffn",))
     eng = res["engine"]
-    print(f"[slice] tokens {toks.cpu().tolist()[0]} == greedy_generate: True")
-    print(f"[slice] kernel launches on the main path (engine+shadow): "
-          f"{res['launches_engine']['moe_ffn']}; in the greedy_generate check: "
-          f"{res['launches_reference']['moe_ffn']} (all {launches})")
-    print(f"[slice] recall {eng_recall(res)}, loads {eng.slots.stats['loads']}, "
-          f"bytes_moved {eng.slots.bytes_moved}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     phase_breakdown(cfg, params, eng, res)
     prefill = engine_prefill_ms(eng, cfg, args.prompt_len, args.tokens, args.seed)
     print(f"[slice] engine prefill of the {args.prompt_len}-token prompt (main model, then the "
           f"SEP shadow; CUDA-synchronized host clock, median of 3): {prefill:.3f} ms",
           flush=True)
     return {"launches": res["launches_engine"]["moe_ffn"], "cfg": cfg, "params": params,
-            "prefill_ms": prefill, "reference": res["reference"],
-            "tpot_ms": statistics.median(res["step_seconds"]) * 1e3,
+            "prefill_ms": prefill, "reference": res["reference"], "tpot_ms": res["tpot_ms"],
             "batch": _prompt(cfg, args.prompt_len, args.seed, "cuda")}
 
 
@@ -2186,6 +2172,7 @@ def phase_ssd() -> dict:
     import torch
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_ref
     shapes = [(b, nc, SSD_H, SSD_P, SSD_N) for b in (1, 4) for nc in (1, 4, 8)]
+    shapes.append((1, JAMBA_LONG_CHUNKS, SSD_H, SSD_P, SSD_N))   # jamba-long's prefill
     shapes.append((2, 5, 3, 5, 12))                   # a ragged float4 tail
     worst = 0.0
     errs = {}
@@ -2228,7 +2215,7 @@ def phase_ssd() -> dict:
     if worst > SSD_TOL:
         fail(f"ssd scan relative error {worst:.3e} above {SSD_TOL:g}")
     rows = {}
-    for b, nc in ((1, 4), (4, 8)):
+    for b, nc in ((1, 4), (4, 8), (1, JAMBA_LONG_CHUNKS)):
         s, decay, _ = ssd_inputs(b, nc, SSD_H, SSD_P, SSD_N, seed=3, with_h0=False)
         t_k = median_ms(lambda: ssd_scan_kernel(s, decay))
         t_p = median_ms(lambda: ssd_scan_ref(s, decay), iters=20)
@@ -2259,10 +2246,8 @@ def _reset_launches():
 
 def phase_jamba_slice() -> dict:
     """``serve_single`` at Jamba-v0.1 width, 6 layers, 1000-token prompt."""
-    import statistics
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import KERNELS, build_parser, serve_single
     from repro_torch.models import init_params
     from repro_torch.models.mamba import mamba_decode
     from repro_torch.models.transformer import layer_params
@@ -2286,37 +2271,9 @@ def phase_jamba_slice() -> dict:
     torch.cuda.synchronize()
     print(f"[jamba-slice] random bf16 parameters from seed 0: {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card", flush=True)
-    args = build_parser().parse_args(
-        ["--prompt-len", str(JAMBA_PROMPT), "--tokens", "8", "--predictor", "sep",
-         "--shadow", "int8", "--transport-precision", "fp32", "--workers", "8",
-         "--seed", "0"])
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    t0 = time.perf_counter()
-    res = serve_single(cfg, params, args)
-    every = {name: k.launches for name, k in KERNELS.items()}
-    print(f"[jamba-slice] serve_single took {time.perf_counter() - t0:.1f} s", flush=True)
-    toks = res["tokens"]
-    if tuple(toks.shape) != (1, args.tokens):
-        fail(f"jamba engine tokens have shape {tuple(toks.shape)}")
-    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        fail("jamba engine tokens out of the vocabulary")
-    if not torch.equal(toks.cpu(), res["reference"].cpu()):
-        fail("jamba engine tokens differ from greedy_generate")
-    engine, reference = res["launches_engine"], res["launches_reference"]
-    for name in ("ssd_scan", "moe_ffn", "flash_decode"):
-        if engine[name] <= 0 or reference[name] <= 0:
-            fail(f"the jamba main path did not launch {name} on both sides")
+    res = _run_single("jamba-slice", cfg, params, _single_args(JAMBA_PROMPT, 8),
+                      ("ssd_scan", "moe_ffn", "flash_decode"))
     eng = res["engine"]
-    steps = res["step_seconds"]
-    tpot = statistics.median(steps) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[jamba-slice] tokens {toks.cpu().tolist()[0]} == greedy_generate: True")
-    print(f"[jamba-slice] kernel launches on the main path (engine+shadow) {engine}; in the "
-          f"greedy_generate check {reference} (all {every})")
-    print(f"[jamba-slice] TPOT median {tpot:.3f} ms over {len(steps)} tokens; recall "
-          f"{eng_recall(res)}, loads {eng.slots.stats['loads']}, bytes_moved "
-          f"{eng.slots.bytes_moved}; peak device memory {peak:.2f} GB", flush=True)
     parts = phase_breakdown(cfg, params, eng, res)
     # one Mamba layer's decode step at B=1 (one block of 8 rows), and the
     # part of it that pads the state to the block
@@ -2334,12 +2291,12 @@ def phase_jamba_slice() -> dict:
           f"of which padding h ({state['h'].numel() * 4} bytes a row) to 8 rows {pad_ms:.3f} "
           f"ms; a token's loads take {parts['loads_per_token'] * parts['load_ms']:.3f} ms",
           flush=True)
-    prefill = engine_prefill_ms(eng, cfg, JAMBA_PROMPT, args.tokens, 0)
+    prefill = engine_prefill_ms(eng, cfg, JAMBA_PROMPT, 8, 0)
     print(f"[jamba-slice] engine prefill of the {JAMBA_PROMPT}-token prompt (main model, then "
           f"the SEP shadow; CUDA-synchronized host clock, median of 3): {prefill:.3f} ms",
           flush=True)
-    return {"launches": engine, "cfg": cfg, "params": params, "tpot_ms": tpot,
-            "peak_gb": peak, "prefill_ms": prefill}
+    return {"launches": res["launches_engine"], "cfg": cfg, "params": params,
+            "tpot_ms": res["tpot_ms"], "peak_gb": res["peak_gb"], "prefill_ms": prefill}
 
 
 def phase_jamba_serve(cfg, params) -> dict:
@@ -2399,6 +2356,340 @@ def phase_jamba_serve(cfg, params) -> dict:
     return {"launches": out["launches_serving"], "peak_gb": peak, "built_gb": built}
 
 
+def kernel_width_rows(tag: str, d: int, f: int, shapes) -> dict:
+    """Kernel 1 on bf16 weights at a model's widths (D, F) and its main
+    path's (E, C): within tolerance of its plain version, each (row, expert)
+    bitwise equal to the largest call's, timed back to back beside its
+    bound, its plain version and the torch.bmm formula."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    emax, cmax = max(e for e, _ in shapes), max(c for _, c in shapes)
+
+    def weight(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev) * fan_in ** -0.5).to(
+            torch.bfloat16)
+
+    x = torch.randn((cmax, d), generator=gen, device=dev)
+    wg, wu, wd = weight((emax, d, f), d), weight((emax, d, f), d), weight((emax, f, d), f)
+    full = moe_ffn_kernel(x.expand(emax, cmax, d).contiguous(), wg, wu, wd)
+
+    def library(xd, e):
+        xb = xd.to(torch.bfloat16)
+        return torch.bmm(F.silu(torch.bmm(xb, wg[:e])) * torch.bmm(xb, wu[:e]), wd[:e])
+
+    rows = {}
+    for e, c in shapes:
+        xd = x[:c].expand(e, c, d).contiguous()
+        k = moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e])
+        p = moe_ffn_ref(xd, wg[:e], wu[:e], wd[:e])
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(k).all()):
+            fail(f"kernel output not finite at {tag} E={e} C={c}")
+        err = float((k - p).abs().max())
+        if err / float(p.abs().max()) > KERNEL_TOL:
+            fail(f"kernel disagrees with its plain version at {tag} E={e} C={c}")
+        if not torch.equal(k, full[:e, :c]):
+            fail(f"kernel rows at {tag} E={e} C={c} differ from the E={emax} C={cmax} call's")
+        t_k = time_ms(lambda: moe_ffn_kernel(xd, wg[:e], wu[:e], wd[:e]))
+        t_p = time_ms(lambda: moe_ffn_ref(xd, wg[:e], wu[:e], wd[:e]), iters=5)
+        t_l = time_ms(lambda: library(xd, e))
+        b_ms, b_by = bound_ms(e, c, 2, d, f)
+        rows[(e, c)] = dict(shape=f"E={e} C={c} D={d} F={f} bf16", ms=t_k, plain_ms=t_p,
+                            library_ms=t_l, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        print(f"[{tag}] kernel E={e:3d} C={c:2d} D={d} F={f}: max|k-p| {err:.3e}, rows == the "
+              f"E={emax} C={cmax} call's bitwise; kernel {t_k:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {b_ms / t_k:.1%} of it), torch.bmm bf16 formula {t_l:.4f} ms, plain "
+              f"{t_p:.4f} ms (back to back)", flush=True)
+    del x, wg, wu, wd, full
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_layout_row(tag: str, b: int, w: int, kh: int, g: int, hd: int,
+                     seed: int = None) -> dict:
+    """Flash decode (bf16) at one head layout and window: within tolerance
+    of its plain version, each row bitwise equal to its own B=1 launch,
+    timed (device time) beside its bound, plain version and
+    ``scaled_dot_product_attention``, and with the host's launch time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode_kernel, flash_decode_ref
+    q, k, v, kpos, pos = flash_inputs(b, w, torch.bfloat16, seed=w + g if seed is None else seed,
+                                      kh=kh, g=g, hd=hd)
+    o = flash_decode_kernel(q, k, v, kpos, pos)
+    p = flash_decode_ref(q, k, v, kpos, pos)
+    torch.cuda.synchronize()
+    err = float((o - p).abs().max())
+    if not bool(torch.isfinite(o).all()) or err / float(p.abs().max()) > KERNEL_TOL:
+        fail(f"flash kernel disagrees with its plain version at {tag} ({err:.3e})")
+    for i in range(b):
+        if not torch.equal(flash_decode_kernel(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                               kpos[i:i + 1], pos[i:i + 1]), o[i:i + 1]):
+            fail(f"flash row {i} differs from its own B=1 launch at {tag}")
+    qs = q.reshape(b, kh * g, 1, hd)
+    ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = ((kpos >= 0) & (kpos <= pos[:, None]))[:, None, None, :]
+    t_k = median_ms(lambda: flash_decode_kernel(q, k, v, kpos, pos))
+    t_host = median_ms(lambda: flash_decode_kernel(q, k, v, kpos, pos), device_only=False)
+    t_p = median_ms(lambda: flash_decode_ref(q, k, v, kpos, pos), iters=20)
+    t_l = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                           enable_gqa=True))
+    b_ms, b_by, nbytes = flash_bound_ms(b, w, 2, kh, g, hd)
+    print(f"[{tag}] flash decode bf16 B={b} W={w} K={kh} G={g} Hd={hd}: max|k-p| {err:.3e}, "
+          f"rows == own B=1 launch; kernel {t_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{nbytes} bytes, {b_ms / t_k:.1%} of it), plain {t_p:.4f} ms, "
+          f"scaled_dot_product_attention {t_l:.4f} ms (device time, median of 25 / 20 / 25 "
+          f"launches); kernel with the host's launch time {t_host:.4f} ms", flush=True)
+    return dict(shape=f"B={b} W={w} K={kh} G={g} Hd={hd} bf16", ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, host_ms=t_host)
+
+
+def _single_args(prompt_len: int, workers: int, tokens: int = LONG_TOKENS):
+    from repro_torch.launch.serve import build_parser
+    return build_parser().parse_args(
+        ["--prompt-len", str(prompt_len), "--tokens", str(tokens), "--predictor", "sep",
+         "--shadow", "int8", "--transport-precision", "fp32", "--workers", str(workers),
+         "--seed", "0"])
+
+
+def _run_single(tag: str, cfg, params, args, kernels) -> dict:
+    """``serve_single`` with the launch counts set to 0 just before it and
+    the peak memory reset, then the gates of every single-stream phase:
+    tokens of the right shape, in the vocabulary, equal to
+    ``greedy_generate``, and each of ``kernels`` launched by the engine
+    and by the reference."""
+    import statistics
+    import torch
+    from repro_torch.launch.serve import serve_single
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = serve_single(cfg, params, args)
+    print(f"[{tag}] serve_single took {time.perf_counter() - t0:.1f} s", flush=True)
+    toks = res["tokens"]
+    if tuple(toks.shape) != (1, args.tokens):
+        fail(f"{tag} engine tokens have shape {tuple(toks.shape)}")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"{tag} engine tokens out of the vocabulary")
+    if not torch.equal(toks.cpu(), res["reference"].cpu()):
+        fail(f"{tag} engine tokens differ from greedy_generate")
+    for name in kernels:
+        if res["launches_engine"][name] <= 0 or res["launches_reference"][name] <= 0:
+            fail(f"the {tag} main path did not launch {name} on both sides")
+    eng = res["engine"]
+    res["tpot_ms"] = statistics.median(res["step_seconds"]) * 1e3
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{tag}] tokens {res['tokens'].cpu().tolist()[0]} == greedy_generate: True; kernel "
+          f"launches on the main path (engine+shadow) {res['launches_engine']}, in the "
+          f"greedy_generate check {res['launches_reference']}")
+    print(f"[{tag}] TPOT median {res['tpot_ms']:.3f} ms over {len(res['step_seconds'])} "
+          f"tokens; recall {eng_recall(res)}, loads {eng.slots.stats['loads']} "
+          f"({eng.slots.stats['loads'] / len(res['step_seconds']):.3f} a token), bytes_moved "
+          f"{eng.slots.bytes_moved}; peak device memory {res['peak_gb']:.2f} GB", flush=True)
+    return res
+
+
+def phase_long(cfg, params) -> dict:
+    """The Mixtral slice with a 3000-token prompt: ``prefill`` pads it to its
+    4096 bucket, so every attention layer's prefill runs blockwise; the cache
+    holds 3008 slots, so flash decode runs at W=3008."""
+    import torch
+    from repro_torch.models.attention import attn_seq
+    from repro_torch.models.transformer import layer_params
+    gc.collect()                # the cluster phase's engines leave the card first
+    torch.cuda.empty_cache()
+    res = _run_single("long", cfg, params, _single_args(LONG_PROMPT, 8),
+                      ("moe_ffn", "flash_decode"))
+    eng = res["engine"]
+    prefill = engine_prefill_ms(eng, cfg, LONG_PROMPT, LONG_TOKENS, 0)
+    print(f"[long] engine prefill of the {LONG_PROMPT}-token prompt at its 4096 bucket (main "
+          f"model, then the SEP shadow; CUDA-synchronized host clock, median of 3): "
+          f"{prefill:.3f} ms", flush=True)
+    w = LONG_PROMPT + LONG_TOKENS
+    frow = flash_layout_row("long", 1, w, N_KV, GROUP, HEAD_DIM)
+    mixer = layer_params(cfg, params, 0)["mixer"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((1, 4096, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.arange(4096, device="cuda", dtype=torch.int32)[None]
+    t_blk = _median_ms(lambda: attn_seq(cfg, mixer, x, pos))
+    t_full = _median_ms(lambda: attn_seq(cfg, mixer, x[:, :2048], pos[:, :2048]))
+    print(f"[long] one attention layer's prefill (bf16, projections included; "
+          f"CUDA-synchronized host clock, median of 5): blockwise at T=4096 {t_blk:.3f} ms, "
+          f"the full path at T=2048 {t_full:.3f} ms ({t_blk / t_full:.2f}x for 2x the "
+          f"tokens)", flush=True)
+    del x, pos, mixer, eng, res["engine"]
+    return {"launches": res["launches_engine"], "tpot_ms": res["tpot_ms"],
+            "peak_gb": res["peak_gb"], "prefill_ms": prefill, "flash": frow,
+            "blockwise_ms": t_blk, "full_2048_ms": t_full}
+
+
+def phase_jamba_long(cfg, params) -> dict:
+    """The jamba-slice phase's parameters with a 3000-token prompt: a hybrid
+    never pads, so its attention layer runs blockwise at 3000 tokens and its
+    Mamba layers scan 12 chunks of 256."""
+    import torch
+    gc.collect()                # jamba-serve's engine and pool leave the card first
+    torch.cuda.empty_cache()
+    res = _run_single("jamba-long", cfg, params, _single_args(LONG_PROMPT, 8),
+                      ("ssd_scan", "moe_ffn", "flash_decode"))
+    prefill = engine_prefill_ms(res["engine"], cfg, LONG_PROMPT, LONG_TOKENS, 0)
+    print(f"[jamba-long] engine prefill of the {LONG_PROMPT}-token prompt (main model, then "
+          f"the SEP shadow; CUDA-synchronized host clock, median of 3): {prefill:.3f} ms; "
+          f"ssd_scan launches engine+shadow {res['launches_engine']['ssd_scan']}, "
+          f"greedy_generate check {res['launches_reference']['ssd_scan']}", flush=True)
+    return {"launches": res["launches_engine"], "tpot_ms": res["tpot_ms"],
+            "peak_gb": res["peak_gb"], "prefill_ms": prefill}
+
+
+QWEN3_LAYERS = 8          # of 48: the dense reference and the shadow stack all 128 experts
+TOP8_WORKERS = 16         # two groups of 8: a layer's loads overlap the layer before
+
+
+def _top8_params(tag: str, cfg, full):
+    """Random bf16 parameters from seed 0 on the card, after the earlier
+    phases' tensors have left it."""
+    import torch
+    from repro_torch.models import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} (G={cfg.num_heads // cfg.num_kv_heads}, Hd "
+          f"{cfg.resolved_head_dim}), {cfg.num_experts} experts (expert rows "
+          f"{cfg.num_experts_padded}) top-{cfg.top_k}, d_expert {cfg.d_expert}, vocab "
+          f"{cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, {cfg.num_layers} of "
+          f"{full.num_layers} layers, {cfg.dtype}; {cfg.param_count() * 2 / 1e9:.2f} GB of "
+          f"parameters", flush=True)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[{tag}] random bf16 parameters from seed 0: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card", flush=True)
+    return params
+
+
+def modelled_baselines(tag: str, cfg, res) -> dict:
+    """The timing model on the phase's own trace: OD-MoE, fully cached,
+    single-node offload cache (LRU and LFU, a third of the experts cached)
+    and CPU inference, on the paper's testbed."""
+    from repro_torch.core import (RTX3090_EDGE, simulate_cached, simulate_cpu, simulate_odmoe,
+                                  simulate_offload_cache)
+    eng, trace = res["engine"], res["trace"]
+    n_experts = len(eng.moe_layers) * cfg.num_experts
+    cache = n_experts // 3
+    out = {"odmoe": simulate_odmoe(cfg, trace, eng.sched, RTX3090_EDGE, shadow_scheme="int8",
+                                   predictor="sep", transport=res["transport"]).tokens_per_s,
+           "cached": simulate_cached(cfg, RTX3090_EDGE), "cpu": simulate_cpu(cfg, RTX3090_EDGE)}
+    for policy in ("lru", "lfu"):
+        out[policy] = simulate_offload_cache(cfg, trace, RTX3090_EDGE, policy=policy,
+                                             cache_experts=cache)
+    print(f"[{tag}] modelled, not measured ({RTX3090_EDGE.name} profile, fp32 weights, this "
+          f"phase's trace of {len(trace.records)} steps): OD-MoE {out['odmoe']:.3f} tok/s; "
+          f"fully cached {out['cached']:.3f}; offload cache of {cache} of {n_experts} experts "
+          f"LRU {out['lru']['tokens_per_s']:.3f} tok/s (hit rate "
+          f"{out['lru']['cache_hit_rate']:.4f}), LFU {out['lfu']['tokens_per_s']:.3f} (hit rate "
+          f"{out['lfu']['cache_hit_rate']:.4f}); CPU {out['cpu']:.3f}", flush=True)
+    return out
+
+
+def phase_qwen3() -> dict:
+    """qwen3-moe-30b-a3b at full width, 8 of 48 layers, on 16 workers."""
+    from repro_torch.configs import get_config
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(full, num_layers=QWEN3_LAYERS)
+    print(f"[qwen3] cut: num_layers {full.num_layers} -> {cfg.num_layers}: the dense "
+          f"reference and the SEP shadow each hold every expert on the card, ~"
+          f"{full.param_count() * 2 / 1e9:.1f} GB at 48 layers, twice over past the card's 80 GB")
+    params = _top8_params("qwen3", cfg, full)
+    res = _run_single("qwen3", cfg, params, _single_args(16, TOP8_WORKERS),
+                      ("moe_ffn", "flash_decode"))
+    phase_breakdown(cfg, params, res["engine"], res)
+    modelled = modelled_baselines("qwen3", cfg, res)
+    prefill = engine_prefill_ms(res["engine"], cfg, 16, LONG_TOKENS, 0)
+    print(f"[qwen3] engine prefill of the 16-token prompt: {prefill:.3f} ms", flush=True)
+    del res["engine"]
+    rows = kernel_width_rows("qwen3", cfg.d_model, cfg.d_expert,
+                             ((8, 1), (cfg.num_experts, 1), (cfg.num_experts, 16)))
+    return {"cfg": cfg, "params": params, "launches": res["launches_engine"],
+            "tpot_ms": res["tpot_ms"], "peak_gb": res["peak_gb"], "prefill_ms": prefill,
+            "modelled": modelled, "rows": rows}
+
+
+def phase_qwen3_serve(cfg, params) -> dict:
+    """The serve phase's traffic on qwen3-moe (8 layers), dense KV, 16 workers."""
+    import torch
+    from repro_torch.launch.serve import build_parser, serve_traffic
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = build_parser().parse_args(
+        ["--requests", "8", "--arrival-rate", "0", "--prompt-len", "128", "--tokens", "8",
+         "--max-batch", "4", "--compose", "overlap", "--predictor", "sep", "--shadow", "int8",
+         "--transport-precision", "fp32", "--workers", str(TOP8_WORKERS),
+         "--seed", str(SERVE_SEED)])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = serve_traffic(cfg, params, args)       # raises unless every request == solo
+    res, reqs = out["result"], out["requests"]
+    peak, built = out["serving_peak_bytes"] / 1e9, out["build_peak_bytes"] / 1e9
+    print(f"[qwen3-serve] {len(reqs)} requests at t=0 (make_traffic seed {SERVE_SEED}): "
+          f"prompts {[len(r.prompt) for r in reqs]}; serve_traffic took "
+          f"{time.perf_counter() - t0:.1f} s; peak device memory while building "
+          f"{built:.2f} GB, while serving {peak:.2f} GB")
+    if sorted(res.outputs) != sorted(r.rid for r in reqs):
+        fail("not every qwen3 request was served")
+    for r in reqs:
+        toks = res.outputs[r.rid]
+        if len(toks) != r.max_new_tokens or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab_size:
+            fail(f"qwen3 request {r.rid}: {len(toks)} tokens, out of budget or vocabulary")
+    if res.mean_batch <= 1.0:
+        fail(f"qwen3 mean batch {res.mean_batch:.2f}: no composed step")
+    for name in ("moe_ffn", "flash_decode"):
+        if out["launches_serving"][name] <= 0 or out["launches_reference"][name] <= 0:
+            fail(f"{name} did not launch on both the qwen3 serving and reference side")
+    by_b = steps_by_b(res)
+    print(f"[qwen3-serve] tokens of all {len(reqs)} requests == solo greedy_generate; mean "
+          f"batch {res.mean_batch:.2f}; composed steps {fmt_steps(by_b)}; kernel launches on "
+          f"the main path (engine+shadow) {out['launches_serving']}; in the solo check "
+          f"{out['launches_reference']}", flush=True)
+    launches = out["launches_serving"]
+    del out, res
+    frow = flash_layout_row("qwen3-serve", 4, 144, cfg.num_kv_heads,
+                            cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"launches": launches, "steps_by_b": by_b, "peak_gb": peak, "built_gb": built,
+            "flash": frow}
+
+
+def phase_granite() -> dict:
+    """granite-moe-3b-a800m at full width and depth on 16 workers."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-3b-a800m")
+    print(f"[granite] cut: none ({cfg.num_layers} layers; padded_experts "
+          f"{cfg.padded_experts} kept: the router picks among {cfg.num_experts}, the store "
+          f"holds those {cfg.num_experts})")
+    params = _top8_params("granite", cfg, cfg)
+    res = _run_single("granite", cfg, params, _single_args(16, TOP8_WORKERS),
+                      ("moe_ffn", "flash_decode"))
+    eng = res["engine"]
+    stored = sorted({e for (_, e) in eng.store._packed})
+    if stored != list(range(cfg.num_experts)):
+        fail(f"the granite store holds experts {stored[0]}..{stored[-1]}, not the "
+             f"{cfg.num_experts} routed ones")
+    phase_breakdown(cfg, params, eng, res)
+    prefill = engine_prefill_ms(eng, cfg, 16, LONG_TOKENS, 0)
+    print(f"[granite] engine prefill of the 16-token prompt: {prefill:.3f} ms", flush=True)
+    del eng, res["engine"], params
+    frow = flash_layout_row("granite", 1, 16 + LONG_TOKENS, cfg.num_kv_heads,
+                            cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
+    rows = kernel_width_rows("granite", cfg.d_model, cfg.d_expert,
+                             ((8, 1), (64, 1), (64, 16)))
+    return {"launches": res["launches_engine"], "tpot_ms": res["tpot_ms"],
+            "peak_gb": res["peak_gb"], "prefill_ms": prefill, "flash": frow, "rows": rows}
+
+
 def eng_recall(res) -> str:
     r = res["trace"].recall()
     return "n/a" if r is None else f"{r:.4f}"
@@ -2429,14 +2720,24 @@ def main():
     placement = phase_placement(cfg, params, moe, store)
     cvs = phase_cvs(cfg, params, moe, store)
     cluster = phase_cluster(cfg, params, serve, store, placement.pop("plan"))
-    del cfg, params, moe["batch"], moe["reference"], store
+    del store
+    long = phase_long(cfg, params)
+    del cfg, params, moe["batch"], moe["reference"]
     gc.collect()
     torch.cuda.empty_cache()
     packed = phase_packed_slice()
     torch.cuda.empty_cache()
     srows = phase_ssd()
     jamba = phase_jamba_slice()
-    jamba_serve = phase_jamba_serve(jamba.pop("cfg"), jamba.pop("params"))
+    jcfg, jparams = jamba.pop("cfg"), jamba.pop("params")
+    jamba_serve = phase_jamba_serve(jcfg, jparams)
+    jamba_long = phase_jamba_long(jcfg, jparams)
+    del jcfg, jparams
+    qwen3 = phase_qwen3()
+    qcfg, qparams = qwen3.pop("cfg"), qwen3.pop("params")
+    qwen3_serve = phase_qwen3_serve(qcfg, qparams)
+    del qcfg, qparams
+    granite = phase_granite()
     gc.collect()
     torch.cuda.empty_cache()
     irows = phase_int8()
@@ -2446,12 +2747,22 @@ def main():
     print("[memory] peak device memory while serving (while building the engine and pool): "
           + ", ".join(f"{n} {r['peak_gb']:.2f} GB ({r['built_gb']:.2f} GB)" for n, r in
                       (("serve", serve), ("prefetch-serve", pserve), ("spec-serve", sserve),
-                       ("jamba-serve", jamba_serve)))
+                       ("jamba-serve", jamba_serve), ("qwen3-serve", qwen3_serve)))
           + "; prefetch runs, peak while decoding: "
-          + ", ".join(f"{n} {r['peak_gb']:.2f}" for n, r in prefetch["runs"].items()) + " GB")
+          + ", ".join(f"{n} {r['peak_gb']:.2f}" for n, r in prefetch["runs"].items()) + " GB"
+          + "; single-stream phases, peak while building and decoding: " + ", ".join(
+              f"{n} {r['peak_gb']:.2f} GB" for n, r in (
+                  ("long", long), ("jamba-long", jamba_long), ("qwen3", qwen3),
+                  ("granite", granite))))
     print(f"[prefill] engine prefill (main model, then the SEP shadow): slice "
-          f"{moe['prefill_ms']:.3f} ms (16 tokens), jamba-slice {jamba['prefill_ms']:.3f} ms "
-          f"({JAMBA_PROMPT} tokens)")
+          f"{moe['prefill_ms']:.3f} ms (16 tokens), long {long['prefill_ms']:.3f} ms "
+          f"({LONG_PROMPT} tokens at the 4096 bucket), jamba-slice {jamba['prefill_ms']:.3f} ms "
+          f"({JAMBA_PROMPT} tokens), jamba-long {jamba_long['prefill_ms']:.3f} ms "
+          f"({LONG_PROMPT} tokens), qwen3 {qwen3['prefill_ms']:.3f} ms and granite "
+          f"{granite['prefill_ms']:.3f} ms (16 tokens)")
+    print(f"[tpot] single-stream TPOT medians: long {long['tpot_ms']:.3f} ms, jamba-long "
+          f"{jamba_long['tpot_ms']:.3f} ms, qwen3 {qwen3['tpot_ms']:.3f} ms, granite "
+          f"{granite['tpot_ms']:.3f} ms")
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",
@@ -2463,6 +2774,11 @@ def main():
         "fleet_serve_launches": fserve["launches"]["moe_ffn"],
         "placement_launches": placement["launches"], "cvs_launches": cvs["launches"],
         "cluster_launches": cluster["launches"]["moe_ffn"],
+        "long_launches": long["launches"]["moe_ffn"],
+        "qwen3_launches": qwen3["launches"]["moe_ffn"],
+        "qwen3_serve_launches": qwen3_serve["launches"]["moe_ffn"],
+        "granite_launches": granite["launches"]["moe_ffn"],
+        "top8_widths": list(qwen3["rows"].values()) + list(granite["rows"].values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": f"E=2 C=1 D={D_MODEL} F={D_EXPERT} bf16 weights (engine wave)",
@@ -2494,6 +2810,11 @@ def main():
         "spec_serve_launches": sserve["launches"]["flash_decode"],
         "fleet_serve_launches": fserve["launches"]["flash_decode"],
         "cluster_launches": cluster["launches"]["flash_decode"],
+        "long_launches": long["launches"]["flash_decode"],
+        "qwen3_launches": qwen3["launches"]["flash_decode"],
+        "qwen3_serve_launches": qwen3_serve["launches"]["flash_decode"],
+        "granite_launches": granite["launches"]["flash_decode"],
+        "new_layouts": [long["flash"], qwen3_serve["flash"], granite["flash"]],
         "verify_ms": vrow["ms"], "verify_plain_ms": vrow["plain_ms"],
         "verify_library_ms": vrow["library_ms"], "verify_bound_ms": vrow["bound_ms"],
         "verify_bound_by": vrow["bound_by"], "verify_max_abs_err": vrow["max_abs_err"],
@@ -2509,6 +2830,8 @@ def main():
         "shape": f"B=1 NC=4 H={SSD_H} P={SSD_P} N={SSD_N} fp32 (jamba-slice prefill of "
                  f"{JAMBA_PROMPT} tokens); jamba-serve launches (engine+shadow): "
                  f"{jamba_serve['launches']['ssd_scan']}",
+        "jamba_long_launches": jamba_long["launches"]["ssd_scan"],
+        "nc12": srows[(1, JAMBA_LONG_CHUNKS)],
     }, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/int8_matmul.cu",

@@ -1,5 +1,9 @@
 """granite-moe-3b-a800m — small-expert MoE: 40 experts, top-8, per-expert
-FFN hidden 512.  [hf:ibm-granite/granite-3.0-1b-a400m-base]"""
+FFN hidden 512.  [hf:ibm-granite/granite-3.0-3b-a800m-base]
+
+The widths are granite-3.0-3b-a800m's.  ``source`` keeps the reference
+config's string, which names the 1b-a400m model (32 experts, D=1024, 24
+layers): the port's configs hold every field equal to the reference's."""
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(

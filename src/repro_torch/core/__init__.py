@@ -4,7 +4,8 @@ the serving loop composes), worker-group scheduling, the expert store
 and worker slots (full-width or packed-resident), prefill assignment and
 the decode and serving timing model (fleet- and fault-aware over a
 ``repro_torch.fleet.FleetSchedule``, pricing experts that compute-vs-ship
-hosts on the main node), async expert prefetch with opportunistic
+hosts on the main node) with the paper's cached, CPU and offload-cache
+baselines, async expert prefetch with opportunistic
 residency, and shadow-drafted speculative decoding."""
 from .align import AlignmentPolicy, kv_bytes_per_token, token_bytes
 from .engine import (LayerRecord, ODMoEEngine, TokenRecord, Trace, concat_cache_lists,
@@ -23,7 +24,8 @@ from .store import DeviceShard, ExpertStore, FetchedShard, LoadEvent, WorkerSlot
 from .timing import (RTX3090_EDGE, DecodeClock, HardwareProfile, ODMoETimings,
                      ServingTimings, degraded_tpot_report, embedding_payload, latency_percentiles,
                      layer_bytes, node_memory_report, poisson_arrivals, simulate_cached,
-                     simulate_odmoe, simulate_prefill_cached, simulate_prefill_odmoe)
+                     simulate_cpu, simulate_odmoe, simulate_offload_cache,
+                     simulate_prefill_cached, simulate_prefill_odmoe, synthetic_trace)
 
 __all__ = [
     "AlignmentPolicy", "kv_bytes_per_token", "token_bytes", "LayerRecord",
@@ -38,5 +40,6 @@ __all__ = [
     "WorkerSlots", "RTX3090_EDGE", "DecodeClock", "HardwareProfile", "ODMoETimings",
     "ServingTimings", "degraded_tpot_report", "embedding_payload", "latency_percentiles",
     "layer_bytes", "node_memory_report", "poisson_arrivals", "simulate_cached",
-    "simulate_odmoe", "simulate_prefill_cached", "simulate_prefill_odmoe",
+    "simulate_cpu", "simulate_odmoe", "simulate_offload_cache", "simulate_prefill_cached",
+    "simulate_prefill_odmoe", "synthetic_trace",
 ]

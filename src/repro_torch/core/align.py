@@ -24,6 +24,12 @@ class AlignmentPolicy:
     def align_kv_at(self, iteration: int) -> bool:
         return self.kv_period > 0 and iteration % self.kv_period == 0
 
+    def label(self) -> str:
+        """The paper's grid name, e.g. ``T1_KV16`` (``off`` for period 0)."""
+        t = self.token_period if self.token_period else "off"
+        k = self.kv_period if self.kv_period else "off"
+        return f"T{t}_KV{k}"
+
 
 def kv_bytes_per_token(cfg: ModelConfig, dtype_bytes: int = 4) -> int:
     """Alignment payload: one token's K and V across every attention

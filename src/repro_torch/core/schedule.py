@@ -35,6 +35,11 @@ class GroupSchedule:
         base = group * self.group_size
         return list(range(base, base + self.group_size))
 
+    def assign(self, moe_index: int, experts: Sequence[int]) -> List[Tuple[int, int]]:
+        """One-to-one (expert, worker) mapping onto this layer's group."""
+        workers = self.workers_of_group(self.group_of(moe_index))
+        return [(e, workers[j % len(workers)]) for j, e in enumerate(experts)]
+
     def spill_workers(self, moe_index: int) -> List[int]:
         """Overflow order when a layer needs more experts than its group
         holds: the other groups' workers, nearest group first."""

@@ -126,6 +126,7 @@ class ExpertStore:
         self.moe_layers: List[int] = [
             i for i, (_, ff) in enumerate(cfg.layer_kinds()) if ff == MOE_FF]
         self._packed: Dict[Tuple[int, int], Dict[str, PackedWeight]] = {}
+        self._params = params         # the full-width weights, for get_host (no copy)
         self.expert_bytes = 0         # full-width bytes of one expert
         with torch.no_grad():
             for li in self.moe_layers:
@@ -139,6 +140,15 @@ class ExpertStore:
         # tile-aligned layouts of the pinned wire parts (packed-resident
         # slots), built on first use
         self._device_host: Dict[Tuple[int, int], Dict[str, Tuple[torch.Tensor, ...]]] = {}
+
+    def get_host(self, layer: int, expert: int) -> Dict[str, torch.Tensor]:
+        """One routed expert's full-width weights on the host (copies when
+        the parameters live on the card); ``KeyError`` for a layer without
+        experts or an expert the router cannot pick."""
+        if (layer, expert) not in self._packed:
+            raise KeyError((layer, expert))
+        ff = layer_params(self.cfg, self._params, layer)["ff"]
+        return {n: ff[n][expert].cpu() for n in EXPERT_WEIGHT_NAMES}
 
     def get_packed(self, layer: int, expert: int) -> Dict[str, PackedWeight]:
         """The cached wire-format shard (packed once at construction)."""

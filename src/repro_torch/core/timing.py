@@ -10,7 +10,10 @@ from the bytes each stage moves at calibrated effective bandwidths,
 and the OD-MoE pipeline (worker grouping, staggered loads, shadow
 lookahead, alignment late departure, misprediction reloads) is replayed
 event by event from an engine ``Trace``, following Figs. 2/4/5.  The
-fully-cached baseline and the prefill models price the same config.
+paper's comparison systems (fully cached, CPU, single-node LRU/LFU expert
+offloading with optional expert quantization) and the prefill models
+price the same config, the offload cache on the same routing trace;
+``synthetic_trace`` builds such a trace for a full-size config.
 The serving loop drives the same clock step by step, charging prefills
 and KV swaps between decode steps; ``ServingTimings`` turns the
 per-request timestamps into TTFT/TPOT/throughput.  A speculative verify
@@ -23,12 +26,11 @@ drop out of the orders (a placement plan's orders, where it has one), and
 compute-vs-ship hosted on the main node cross no link: each costs its
 full-width stream from host memory after the gate.  Cluster replicas run
 one clock each over a shared ``worker_free``.  Counterpart:
-``repro.core.timing``; the offload-cache and CPU baselines wait
-(ROADMAP.md queue 1).
+``repro.core.timing``.
 """
 from __future__ import annotations
 
-from collections import defaultdict
+from collections import OrderedDict, defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -38,6 +40,7 @@ from repro_torch.models.config import ATTN, DENSE_FF, MOE_FF, ModelConfig
 from repro_torch.quant.transport import resolve_policy, transport_expert_bytes
 
 from .align import kv_bytes_per_token
+from .engine import LayerRecord, TokenRecord, Trace
 from .schedule import GroupSchedule
 
 
@@ -400,6 +403,92 @@ def simulate_cached(cfg: ModelConfig, profile: HardwareProfile) -> float:
     return 1.0 / profile.t_stream(cfg.active_param_count() * profile.weight_bytes)
 
 
+def simulate_cpu(cfg: ModelConfig, profile: HardwareProfile) -> float:
+    """llama.cpp-style CPU inference (DRAM-streaming bound) -> tokens/s."""
+    active = cfg.active_param_count() * profile.weight_bytes
+    return 1.0 / (active / (profile.cpu_mem_gbps * 1e9))
+
+
+class _LRU:
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.od: "OrderedDict" = OrderedDict()
+
+    def access(self, key) -> bool:
+        hit = key in self.od
+        if hit:
+            self.od.move_to_end(key)
+        else:
+            if len(self.od) >= self.capacity:
+                self.od.popitem(last=False)
+            self.od[key] = True
+        return hit
+
+
+class _LFU:
+    """Least-frequently-used; the victim is ``min`` over a ``set`` of
+    (layer, expert) keys, as in the reference, so ties fall alike."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.counts: Dict = defaultdict(int)
+        self.resident: set = set()
+
+    def access(self, key) -> bool:
+        self.counts[key] += 1
+        hit = key in self.resident
+        if not hit:
+            if len(self.resident) >= self.capacity:
+                victim = min(self.resident, key=lambda k: self.counts[k])
+                self.resident.discard(victim)
+            self.resident.add(key)
+        return hit
+
+
+def simulate_offload_cache(cfg: ModelConfig, trace: Trace, profile: HardwareProfile, *,
+                           policy: str = "lru", cache_experts: int = 0,
+                           quant_factor: float = 1.0) -> Dict[str, float]:
+    """Single-node expert-offloading baseline (Mixtral-Offloading / HOBBIT
+    / MoE-Infinity family) replayed on the SAME routing trace.
+
+    ``cache_experts`` is the device expert cache's capacity in experts;
+    ``quant_factor`` scales expert bytes (HOBBIT/AdapMoE quantization).
+    Misses load serially over one host link."""
+    lb = layer_bytes(cfg, profile.weight_bytes)
+    cache = (_LRU if policy == "lru" else _LFU)(max(cache_experts, 1))
+    t_attn = profile.t_stream(lb["attn"])
+    t_dense = profile.t_stream(lb["dense_ff"])
+    t_mamba = profile.t_stream(lb["mamba"])
+    t_exp = profile.t_stream(lb["expert"] * quant_factor)
+    t_load = profile.t_load(lb["expert"] * quant_factor)
+    t_head = profile.t_stream(lb["embed"])
+    hits = misses = 0
+    per_token = []
+    for rec in trace.records:
+        t = 0.0
+        layer_rec = {lr.layer: lr for lr in rec.layers}
+        for li, (mixer, ff) in enumerate(cfg.layer_kinds()):
+            t += t_attn if mixer == ATTN else t_mamba
+            if ff == DENSE_FF:
+                t += t_dense
+            if ff != MOE_FF:
+                continue
+            lr = layer_rec.get(li)
+            experts = [int(e) for e in lr.true.reshape(-1)] if lr is not None else []
+            for e in set(experts):
+                if cache.access((li, e)):
+                    hits += 1
+                else:
+                    misses += 1
+                    t += t_load
+                t += t_exp
+        t += t_head
+        per_token.append(t)
+    total = hits + misses
+    return {"tokens_per_s": 1.0 / float(np.mean(per_token)),
+            "cache_hit_rate": hits / total if total else 0.0}
+
+
 def simulate_prefill_odmoe(cfg: ModelConfig, profile: HardwareProfile, prompt_len: int,
                            n_workers: int = 8, n_minibatches: int = 4) -> float:
     """TTFT under §3.3, in seconds: per layer all experts load in parallel
@@ -549,3 +638,50 @@ def node_memory_report(engine, kv_pool=None, budget_bytes: Optional[int] = None)
         rep["budget_bytes"] = int(budget_bytes)
         rep["within_budget"] = rep["total_bytes"] <= budget_bytes
     return rep
+
+
+# ------------------------------------------------------------ synthetic trace
+def synthetic_trace(cfg: ModelConfig, n_tokens: int, recall: float, batch: int = 1,
+                    seed: int = 0, with_predictions: bool = True,
+                    sticky: float = 0.55) -> Trace:
+    """A routing trace for a full-size config that no host run decodes,
+    at a target prediction recall.  Expert popularity is Zipf-ish, each
+    layer's selection is kept from the previous token with probability
+    ``sticky`` (what gives the LRU/LFU baselines their hits), and
+    mispredictions are i.i.d. at rate 1 - recall.  Draws the reference's
+    ``np.random.default_rng(seed)`` numbers in the reference's order, so
+    both packages give the same trace."""
+    rng = np.random.default_rng(seed)
+    moe_layers = [i for i, (_, ff) in enumerate(cfg.layer_kinds()) if ff == MOE_FF]
+    e, k = cfg.num_experts, cfg.top_k
+    pop = 1.0 / np.arange(1, e + 1) ** 0.5
+    pop /= pop.sum()
+    prev: Dict[int, np.ndarray] = {}
+    trace = Trace()
+    for n in range(1, n_tokens + 1):
+        rec = TokenRecord(index=n, aligned_token=True, aligned_kv=True)
+        for mi, li in enumerate(moe_layers):
+            perm = rng.permutation(e)
+            true = np.stack([rng.choice(e, size=k, replace=False, p=pop)
+                             for _ in range(batch)])
+            if li in prev and sticky > 0:
+                keep = rng.random(true.shape) < sticky
+                true = np.where(keep, prev[li], true)
+            prev[li] = true
+            if with_predictions:
+                pred = true.copy()
+                wrong = rng.random(true.shape) > recall
+                pred[wrong] = perm[pred[wrong]]          # derangement-ish
+                correct = sum(len(set(map(int, pred[b])) & set(map(int, true[b])))
+                              for b in range(batch))
+                reloads = len({int(x) for x in true.reshape(-1)}
+                              - {int(x) for x in pred.reshape(-1)})
+            else:
+                pred, correct = None, 0
+                reloads = len({int(x) for x in true.reshape(-1)})
+            rec.layers.append(LayerRecord(
+                layer=li, moe_index=mi, group=0, predicted=pred, true=true,
+                correct=correct, reloads=reloads,
+                assignments=[(int(x), 0) for x in dict.fromkeys(true.reshape(-1).tolist())]))
+        trace.records.append(rec)
+    return trace

@@ -1,6 +1,7 @@
 """Grouped-query attention with a ring-buffer KV cache.
 
-  * ``attn_seq``    — full-sequence causal attention (prefill).
+  * ``attn_seq``    — full-sequence causal attention (prefill); above
+    ``BLOCKWISE_THRESHOLD`` tokens it runs ``attn_seq_blockwise``.
   * ``attn_decode`` — single-token decode against the cache.
 
 KV cache layout (per layer): ``{"k","v": (B, W, n_kv, hd), "pos": (B, W)}``
@@ -27,9 +28,10 @@ NEG_INF = -1e30
 
 SEQ_BUCKET_MIN = 8
 
-# Above this length the reference switches to its blockwise
-# online-softmax path, which the port does not have yet.
-BLOCKWISE_THRESHOLD = 2048
+BLOCKWISE_THRESHOLD = 2048   # switch to online-softmax blocks beyond this
+
+# Position of a pad row or key in the blockwise path: masked on both sides.
+P_INVALID = -2 ** 30
 
 
 def seq_bucket(n: int) -> int:
@@ -88,13 +90,18 @@ def _project_qkv(cfg: ModelConfig, params, x):
             v.reshape(b, t, cfg.num_kv_heads, hd))
 
 
+def _sqrt_hd(q):
+    """sqrt(head_dim) rounded to q's dtype, as the reference divides by."""
+    hd = q.shape[-1]
+    return torch.tensor(float(hd), dtype=torch.float32).sqrt().to(q.dtype).to(q.device)
+
+
 def _gqa_scores(cfg: ModelConfig, q, k):
     """q: (B,T,H,hd)  k: (B,S,K,hd)  ->  (B,K,G,T,S) with H = K*G."""
     b, t, h, hd = q.shape
     g = h // cfg.num_kv_heads
     qg = q.reshape(b, t, cfg.num_kv_heads, g, hd)
-    scale = torch.tensor(float(hd), dtype=torch.float32).sqrt().to(q.dtype)
-    s = torch.einsum("btkgh,bskh->bkgts", qg, k) / scale.to(q.device)
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k) / _sqrt_hd(q)
     if cfg.logit_soft_cap:
         s = cfg.logit_soft_cap * torch.tanh(s / cfg.logit_soft_cap)
     return s
@@ -111,11 +118,11 @@ def attn_seq(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
              window: int = 0):
     """Full-sequence attention (prefill).  The key axis is padded to its
     pow2 bucket before the softmax, as in the reference, so a prompt and
-    its bucket-padded twin reduce over identical shapes."""
+    its bucket-padded twin reduce over identical shapes.  Sequences past
+    ``BLOCKWISE_THRESHOLD`` take :func:`attn_seq_blockwise`, so the T x S
+    score matrix is never materialized."""
     if x.shape[1] > BLOCKWISE_THRESHOLD:
-        raise NotImplementedError(
-            "sequences above 2048 tokens need the blockwise attention "
-            "path (ROADMAP.md queue 1: attn_seq_blockwise)")
+        return attn_seq_blockwise(cfg, params, x, positions, causal=causal, window=window)
     q, k, v = _project_qkv(cfg, params, x)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -136,6 +143,67 @@ def attn_seq(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
         v = F.pad(v, (0, 0, 0, 0, 0, s_pad))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     return _gqa_out(cfg, probs, v, params)
+
+
+def attn_seq_blockwise(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
+                       window: int = 0, q_block: int = 512, kv_block: int = 512):
+    """Online-softmax blockwise attention, O(T) activation memory: the
+    reference's recurrence in plain PyTorch (``repro.models.attention.
+    attn_seq_blockwise``), a loop over query blocks and, inside it, over
+    KV blocks with the (m, l, acc) update.
+
+    Rows and keys past T pad with position ``P_INVALID`` and are masked;
+    masked scores are the finite ``NEG_INF``, never -inf.  Every KV block
+    runs, fully masked ones too: once a row's m is finite, such a block
+    gives p = 0 and corr = 1 exactly and changes no bit, so a prompt
+    padded to its bucket gives its real rows the bits of the unpadded
+    one.  A row whose first blocks a window masks keeps m = NEG_INF and
+    p = 1 on them until its first real block, whose corr of exactly 0
+    washes them out, as in the reference."""
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    kv = cfg.num_kv_heads
+    g = cfg.num_heads // kv
+    q, k, v = _project_qkv(cfg, params, x)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    qb, kb = min(q_block, t), min(kv_block, t)
+    pad_q, pad_k = (-t) % qb, (-t) % kb
+    qpos = F.pad(positions, (0, pad_q), value=P_INVALID)
+    kpos = F.pad(positions, (0, pad_k), value=P_INVALID)
+    nq, nk = (t + pad_q) // qb, (t + pad_k) // kb
+    # (B, nq, qb, kv, g, hd) query blocks, scaled first; (B, nk, kb, kv, hd) kv blocks
+    qblocks = F.pad(q, (0, 0, 0, 0, 0, pad_q)).reshape(b, nq, qb, kv, g, hd) / _sqrt_hd(q)
+    kblocks = F.pad(k, (0, 0, 0, 0, 0, pad_k)).reshape(b, nk, kb, kv, hd)
+    vblocks = F.pad(v, (0, 0, 0, 0, 0, pad_k)).reshape(b, nk, kb, kv, hd)
+    qpos, kpos = qpos.reshape(b, nq, qb), kpos.reshape(b, nk, kb)
+    outs = []
+    for i in range(nq):
+        qi, qv = qblocks[:, i], qpos[:, i, None, None, :, None]
+        m = torch.full((b, kv, g, qb), NEG_INF, dtype=torch.float32, device=x.device)
+        l = torch.zeros((b, kv, g, qb), dtype=torch.float32, device=x.device)
+        acc = torch.zeros((b, kv, g, qb, hd), dtype=torch.float32, device=x.device)
+        for j in range(nk):
+            vi, kp = vblocks[:, j], kpos[:, j, None, None, None, :]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qi, kblocks[:, j]).float()
+            if cfg.logit_soft_cap:
+                s = cfg.logit_soft_cap * torch.tanh(s / cfg.logit_soft_cap)
+            mask = (kp > P_INVALID) & (qv > P_INVALID)
+            if causal:
+                mask = mask & (kp <= qv)
+            if window:
+                mask = mask & (qv - kp < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(vi.dtype), vi).float()
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(x.dtype))   # (B,kv,g,qb,hd)
+    o = torch.stack(outs, dim=3).reshape(b, kv, g, nq * qb, hd)[:, :, :, :t]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, kv * g * hd) @ params["wo"]
 
 
 def seed_cache(cfg: ModelConfig, params, x, positions, max_len: int) -> dict:

@@ -29,7 +29,7 @@ from .kvpool import (KVPool, KVPoolStats, PagedCacheBatch, PagedRequestCache, Po
 from .loop import ServeResult, ServingLoop, StepRecord, preemption_victim
 from .request import Request, RequestQueue, RequestState, make_traffic
 from .workload import (DEFAULT_TENANTS, TenantClass, WorkloadSpec, bursty_arrivals,
-                       diurnal_arrivals, heavy_tail_lengths, make_trace)
+                       diurnal_arrivals, heavy_tail_lengths, make_trace, tenant_by_name)
 
 __all__ = [
     "BatchComposer", "ClusterResult", "ClusterRouter", "make_cluster",
@@ -37,5 +37,5 @@ __all__ = [
     "PoolExhausted", "dense_cache_footprint", "ServeResult", "ServingLoop", "StepRecord",
     "preemption_victim", "Request", "RequestQueue", "RequestState", "make_traffic",
     "DEFAULT_TENANTS", "TenantClass", "WorkloadSpec", "bursty_arrivals", "diurnal_arrivals",
-    "heavy_tail_lengths", "make_trace",
+    "heavy_tail_lengths", "make_trace", "tenant_by_name",
 ]

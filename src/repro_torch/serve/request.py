@@ -146,6 +146,12 @@ class RequestQueue:
         self._active: Dict[int, RequestState] = {}
         self.finished: Dict[int, RequestState] = {}
 
+    @property
+    def active(self) -> List[RequestState]:
+        """Active states in admission order (a view; membership changes go
+        through ``activate`` and ``retire``)."""
+        return list(self._active.values())
+
     def next_arrival_s(self) -> Optional[float]:
         return self._pending[0][0] if self._pending else None
 

@@ -11,7 +11,7 @@ generator, so a trace equals the reference's for a seed:
     thinning;
   * ``TenantClass`` / ``WorkloadSpec`` / ``make_trace``: tenant classes
     with weights, length overrides and TTFT/TPOT SLO targets, stamped on
-    each ``Request``.
+    each ``Request``; ``tenant_by_name`` looks a class up.
 
 Tenancy and SLOs are scheduling metadata: whatever trace rides the loop,
 every request's tokens equal its solo ``greedy_generate``.
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -225,3 +225,11 @@ def make_trace(cfg, spec: WorkloadSpec = WorkloadSpec(),
             weight=ten.weight, ttft_slo_s=ten.ttft_slo_s,
             tpot_slo_s=ten.tpot_slo_s))
     return reqs
+
+
+def tenant_by_name(tenants: Sequence[TenantClass], name: str) -> TenantClass:
+    """The tenant class called ``name``; ``KeyError`` if none is."""
+    for t in tenants:
+        if t.name == name:
+            return t
+    raise KeyError(name)

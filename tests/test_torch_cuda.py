@@ -1166,3 +1166,115 @@ def test_two_replicas_on_the_card_equal_solo_greedy(dev):
     assert rec.n_layers == 4
     assert sum(len(lr.hosted) for r in res.replicas for s in r.trace.records
                for lr in s.layers) > 0
+
+
+# ------------------------------- long prompts and top-8 configs at their widths
+# qwen3-moe (D=2048, F=768: three 256-row contraction segments) and
+# granite-moe (D=1536, F=512: two): an engine wave on a group of 8, a served
+# row block, the shadow's and reference's all-expert decode (128 experts),
+# granite's 40 experts padded to 64 on a prefill row block
+TOP8_FFN = [(8, 1, 2048, 768), (16, 8, 2048, 768), (128, 1, 2048, 768), (64, 8, 1536, 512)]
+# the long phase's W=3008 at Mixtral's heads; qwen3's G=8; granite's G=3, Hd=64
+TOP8_FLASH = [(1, 3008, 8, 4, 128), (2, 300, 4, 8, 128), (2, 300, 8, 3, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", TOP8_FFN)
+def test_kernel_at_top8_widths_matches_plain_version(dev, dtype, e, c, d, f):
+    """Within tolerance of the plain version, and the first two experts'
+    first row bitwise equal to their own small launch (an engine wave's
+    bits equal the all-expert reference's)."""
+    args = _inputs(dev, e, c, d, f, dtype, seed=e + c)
+    k = moe_ffn_kernel(*args)
+    p = moe_ffn_ref(*args)
+    torch.cuda.synchronize()
+    assert float((k - p).abs().max() / p.abs().max()) <= REL_TOL
+    x, wg, wu, wd = args
+    sub = moe_ffn_kernel(x[:2, :1].contiguous(), wg[:2], wu[:2], wd[:2])
+    assert torch.equal(sub, k[:2, :1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,kh,g,hd", TOP8_FLASH)
+def test_flash_kernel_at_long_and_top8_layouts(dev, dtype, b, w, kh, g, hd):
+    args = _flash(dev, b, w, kh, g, hd, dtype, seed=w + g)
+    o = flash_decode_kernel(*args)
+    p = flash_decode_ref(*args)
+    torch.cuda.synchronize()
+    assert float((o - p).abs().max() / p.abs().max()) <= REL_TOL
+    for i in range(b):
+        one = flash_decode_kernel(*(t[i:i + 1].contiguous() for t in args))
+        assert torch.equal(one, o[i:i + 1])
+
+
+def test_ssd_kernel_at_a_long_prompts_chunks(dev):
+    """A 3000-token Jamba prompt scans 12 chunks of 256."""
+    s, decay, h0 = _ssd(dev, 1, 12, 128, 64, 128, False, seed=3)
+    k_in, k_last = ssd_scan_kernel(s, decay)
+    p_in, p_last = ssd_scan_ref(s, decay)
+    assert torch.equal(k_in, p_in) and torch.equal(k_last, p_last)
+
+
+BLOCKWISE = ModelConfig(name="t-blk", family="dense", num_layers=1, d_model=256, num_heads=8,
+                        num_kv_heads=2, d_ff=64, vocab_size=16, head_dim=64)
+
+
+def _blockwise_inputs(dev, t, dtype):
+    from repro_torch.models.attention import init_attention
+    gen = torch.Generator(device=dev).manual_seed(t)
+    params = init_attention(gen, BLOCKWISE, dtype, dev)
+    x = torch.randn((1, t, BLOCKWISE.d_model), generator=gen, device=dev).to(dtype)
+    pos = torch.arange(t, device=dev, dtype=torch.int32)[None]
+    return params, x, pos
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_blockwise_attention_on_the_card_matches_the_host(dev, dtype, tol):
+    """A 2200-token sequence takes the blockwise path on both devices: the
+    same recurrence, sums in other orders (bf16 rounds p and the products
+    on each device's own way, hence its looser tolerance)."""
+    params, x, pos = _blockwise_inputs(dev, 2200, dtype)
+    card = attn_lib.attn_seq(BLOCKWISE, params, x, pos)
+    host = attn_lib.attn_seq(BLOCKWISE, {k: v.cpu() for k, v in params.items()}, x.cpu(),
+                             pos.cpu())
+    assert card.device.type == "cuda" and card.shape == host.shape
+    assert float((card.cpu().float() - host.float()).abs().max()
+                 / host.float().abs().max()) <= tol
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_blockwise_attention_matches_attn_seq_at_2048_on_the_card(dev, window):
+    params, x, pos = _blockwise_inputs(dev, 2048, torch.float32)
+    full = attn_lib.attn_seq(BLOCKWISE, params, x, pos, window=window)
+    blk = attn_lib.attn_seq_blockwise(BLOCKWISE, params, x, pos, window=window)
+    assert float((blk - full).abs().max() / full.abs().max()) <= 1e-5
+
+
+TOP8_CFGS = {
+    "qwen3": ModelConfig(name="t-qwen3", family="moe", num_layers=3, d_model=64, num_heads=8,
+                         num_kv_heads=1, d_ff=0, d_expert=64, vocab_size=97, num_experts=16,
+                         top_k=8, head_dim=16, dtype="bfloat16"),
+    "granite": ModelConfig(name="t-granite", family="moe", num_layers=3, d_model=48,
+                           num_heads=6, num_kv_heads=2, d_ff=0, d_expert=32, vocab_size=97,
+                           num_experts=40, top_k=8, padded_experts=48, tie_embeddings=True,
+                           dtype="bfloat16"),
+}
+
+
+@pytest.mark.parametrize("name", list(TOP8_CFGS))
+@pytest.mark.parametrize("workers", [8, 16])
+def test_top8_engine_on_the_card_equals_greedy(dev, name, workers):
+    """Top-8 routing over 16 experts, and over 40 real of 48 padded rows,
+    in bf16: the engine's tokens equal greedy_generate's through both
+    kernels."""
+    cfg = TOP8_CFGS[name]
+    params = init_params(cfg, seed=6, device=dev)
+    batch = {"tokens": torch.randint(0, 97, (1, 10), generator=torch.Generator()
+                                     .manual_seed(7), dtype=torch.int32).to(dev)}
+    before = (moe_ffn_kernel.launches, flash_decode_kernel.launches)
+    eng = ODMoEEngine(cfg, params, n_workers=workers, predictor="sep", device=dev)
+    toks, trace = eng.generate(batch, 6)
+    assert moe_ffn_kernel.launches > before[0] and flash_decode_kernel.launches > before[1]
+    assert torch.equal(toks, greedy_generate(cfg, params, batch, 6))
+    assert max(int(e) for r in trace.records for lr in r.layers
+               for e in lr.true.reshape(-1)) < cfg.num_experts

@@ -1,7 +1,8 @@
 """The port's decode timing model against the JAX package's on the same
 traces: ``DecodeClock``/``simulate_odmoe`` (with and without packed
-worker compute), the cached baseline, the prefill models, Eq. (1) and
-the byte budgets behind them.  Tolerance: 1e-12 relative (the same
+worker compute), the cached, CPU and offload-cache (LRU/LFU) baselines,
+``synthetic_trace``, the prefill models, Eq. (1) and the byte budgets
+behind them.  Tolerance: 1e-12 relative (the same
 float64 arithmetic in the same order)."""
 import jax
 import jax.numpy as jnp
@@ -157,3 +158,61 @@ def test_prefill_helpers_match_jax():
         tprefill.prefill_expert_assignment(cfg, 0)
     with pytest.raises(ValueError):
         tprefill.split_minibatches(4, 0)
+
+
+def _trace_fields(trace):
+    def arr(a):
+        return None if a is None else (np.asarray(a).dtype.str, np.asarray(a).tolist())
+    return [(rec.index, rec.aligned_token, rec.aligned_kv, rec.spec_len, rec.committed,
+             [(lr.layer, lr.moe_index, lr.group, arr(lr.predicted), arr(lr.true), lr.correct,
+               lr.reloads, list(lr.assignments), lr.waves, tuple(lr.touched), arr(lr.gates),
+               lr.shipped, lr.rehits, tuple(lr.hosted)) for lr in rec.layers])
+            for rec in trace.records]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("with_predictions", [True, False])
+def test_synthetic_trace_equals_jax(arch, batch, with_predictions):
+    """The same numpy draws in the same order: every record equal, field
+    for field (dtypes of the routing arrays included)."""
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    for seed, recall, sticky in ((0, 0.8, 0.55), (7, 0.5, 0.0)):
+        want = jt.synthetic_trace(jcfg, 5, recall, batch=batch, seed=seed,
+                                  with_predictions=with_predictions, sticky=sticky)
+        got = tt.synthetic_trace(cfg, 5, recall, batch=batch, seed=seed,
+                                 with_predictions=with_predictions, sticky=sticky)
+        assert _trace_fields(got) == _trace_fields(want)
+        assert got.recall() == want.recall()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("policy", ["lru", "lfu"])
+def test_offload_cache_and_cpu_baselines_match_jax(arch, policy):
+    """The paper's single-node offloading baselines on the same routing
+    trace (a full-size config, batch 2), at several cache sizes and
+    expert-quantization factors, and the CPU baseline."""
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    jtrace = jt.synthetic_trace(jcfg, 6, recall=0.8, batch=2, seed=4)
+    trace = tt.synthetic_trace(cfg, 6, recall=0.8, batch=2, seed=4)
+    for cache in (0, 1, cfg.top_k, cfg.num_experts, 3 * cfg.num_experts):
+        for qf in (1.0, 0.5, 0.28125):
+            kw = dict(policy=policy, cache_experts=cache, quant_factor=qf)
+            got = tt.simulate_offload_cache(cfg, trace, tt.RTX3090_EDGE, **kw)
+            want = jt.simulate_offload_cache(jcfg, jtrace, jt.RTX3090_EDGE, **kw)
+            assert sorted(got) == sorted(want)
+            _close(got["tokens_per_s"], want["tokens_per_s"])
+            _close(got["cache_hit_rate"], want["cache_hit_rate"])
+    _close(tt.simulate_cpu(cfg, tt.RTX3090_EDGE), jt.simulate_cpu(jcfg, jt.RTX3090_EDGE))
+
+
+def test_lfu_ties_fall_as_in_jax():
+    """A capacity-2 LFU over keys whose counts tie: the victims, hence the
+    hit pattern, follow the reference's ``min`` over its resident set."""
+    keys = [(0, 3), (1, 5), (0, 7), (0, 3), (2, 1), (1, 5), (0, 7), (2, 1), (3, 0), (0, 3)]
+    ours, theirs = tt._LFU(2), jt._LFU(2)
+    assert [ours.access(k) for k in keys] == [theirs.access(k) for k in keys]
+    assert ours.resident == theirs.resident and dict(ours.counts) == dict(theirs.counts)
+    lru, jlru = tt._LRU(2), jt._LRU(2)
+    assert [lru.access(k) for k in keys] == [jlru.access(k) for k in keys]
+    assert list(lru.od) == list(jlru.od)
