@@ -206,6 +206,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
              routed experts only.  Prints TPOT, the parts of a token, the
              prefill, flash decode at G=3 Hd=64 and kernel 1 at granite's
              widths (E/C 8/1, 64/1, 64/16).
+12e. dispatch — granite-moe's ``loss_fn`` (the granite phase's bf16
+             parameters, B=2 T=512: 1024 rows a MoE layer) under the four MoE
+             dispatches, ``grouped`` (kernel 1; its launches counted) the main
+             path.  In every MoE layer, on the same rows: ``grouped`` and the
+             ``cap_factor = E / k`` runs of ``scatter`` and ``einsum`` against
+             ``dense``, and at the config's 1.25 and at 0.5 (where pairs
+             drop) the two against each other (same kept (token, rank)
+             pairs), each layer's output within its pair's tolerance and its
+             load-balance term bitwise equal; under ``grouped`` kernel 1
+             against its plain version on each layer's rows, within 1e-4;
+             nothing drops at E/k.  Prints each dispatch's loss,
+             ``loss_fn`` time and peak memory.  The same on the parameters
+             in fp32.  Losses agree within 1e-3 in fp32 and 2.5e-2 in bf16
+             (at 0.5 a flipped tie moves later layers' slots: printed only).
+12f. encdec — seamless-m4t-large-v2 at full width and depth (24 encoder and
+             24 decoder layers, d_model 1024, 16 heads of 64, vocab 256206),
+             B=2, 256 frames, prompt 16, 8 tokens.  fp32 gate: ``greedy_generate``
+             equals ``prefill``/``decode_step``'s argmax and the teacher-forced
+             ``encdec_seq``'s, each step's logits within 1e-4 of it, flash
+             decode launched for self and cross attention in every layer.  bf16
+             run: TPOT, prefill, peak memory, launches; flash decode at the
+             self (W=24, G=1 Hd=64) and cross (W=256, every kpos 0) layouts.
+12g. vlm   — internvl2-26b at full width (d_model 6144, 48/8 heads of 128,
+             d_ff 16384, 256 patches of 3200), prompt 16, 8 tokens, a cache of
+             280 keeping the image: the fp32 gate at 4 layers against the
+             teacher-forced ``lm_seq(frontend_embeds=)``, the bf16 run at all 48
+             layers; flash decode at B=1 W=280 G=6.
 13. int8   — the w8a16 matmul kernel against its plain version at the JAX
              tests' shapes (32x128x64, 64x256x96, ragged 13x70x33) and the
              Mixtral-8x7B expert matrices (4096x14336, 14336x4096) with M in
@@ -228,6 +255,7 @@ JAX package ``repro``.
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -829,8 +857,8 @@ def phase_small():
     tokens = torch.randint(0, cfg.vocab_size, (1, 12),
                            generator=torch.Generator().manual_seed(2), dtype=torch.int32)
     worst = 0.0
-    lc, sc = prefill(cfg, p_cpu, {"tokens": tokens}, 20)
-    lg, sg = prefill(cfg, p_gpu, {"tokens": tokens.cuda()}, 20)
+    lc, sc = prefill(cfg, p_cpu, {"tokens": tokens}, 20, moe_method="grouped")
+    lg, sg = prefill(cfg, p_gpu, {"tokens": tokens.cuda()}, 20, moe_method="grouped")
     for step in range(4):
         if not bool(torch.isfinite(lg).all()):
             fail("small model logits not finite on the card")
@@ -2114,7 +2142,7 @@ def phase_breakdown(cfg, params, eng, res):
     token = res["tokens"][:, -1].contiguous()
     shadow_ms = _median_ms(lambda: eng.shadow.step_state(eng.shadow.state, token))
     batch = {"tokens": res["tokens"]}
-    _, state = prefill(cfg, params, batch, 16)
+    _, state = prefill(cfg, params, batch, 16, moe_method="grouped")
     ref_ms = _median_ms(lambda: decode_step(cfg, params, token, state))
     loads_per_token = eng.slots.stats["loads"] / max(len(res["step_seconds"]), 1)
     print(f"[breakdown] one expert load (pinned host -> card, {nbytes} bytes): "
@@ -2409,16 +2437,20 @@ def kernel_width_rows(tag: str, d: int, f: int, shapes) -> dict:
 
 
 def flash_layout_row(tag: str, b: int, w: int, kh: int, g: int, hd: int,
-                     seed: int = None) -> dict:
+                     seed: int = None, cross: bool = False) -> dict:
     """Flash decode (bf16) at one head layout and window: within tolerance
     of its plain version, each row bitwise equal to its own B=1 launch,
     timed (device time) beside its bound, plain version and
-    ``scaled_dot_product_attention``, and with the host's launch time."""
+    ``scaled_dot_product_attention``, and with the host's launch time.
+    ``cross``: the cross-attention layout, every slot (memory frame) at
+    position 0, so every one is valid."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode_kernel, flash_decode_ref
     q, k, v, kpos, pos = flash_inputs(b, w, torch.bfloat16, seed=w + g if seed is None else seed,
                                       kh=kh, g=g, hd=hd)
+    if cross:
+        kpos = torch.zeros_like(kpos)
     o = flash_decode_kernel(q, k, v, kpos, pos)
     p = flash_decode_ref(q, k, v, kpos, pos)
     torch.cuda.synchronize()
@@ -2438,12 +2470,14 @@ def flash_layout_row(tag: str, b: int, w: int, kh: int, g: int, hd: int,
     t_l = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                            enable_gqa=True))
     b_ms, b_by, nbytes = flash_bound_ms(b, w, 2, kh, g, hd)
-    print(f"[{tag}] flash decode bf16 B={b} W={w} K={kh} G={g} Hd={hd}: max|k-p| {err:.3e}, "
+    print(f"[{tag}] flash decode bf16 B={b} W={w} K={kh} G={g} Hd={hd}"
+          f"{' (cross: every kpos 0)' if cross else ''}: max|k-p| {err:.3e}, "
           f"rows == own B=1 launch; kernel {t_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
           f"{nbytes} bytes, {b_ms / t_k:.1%} of it), plain {t_p:.4f} ms, "
           f"scaled_dot_product_attention {t_l:.4f} ms (device time, median of 25 / 20 / 25 "
           f"launches); kernel with the host's launch time {t_host:.4f} ms", flush=True)
-    return dict(shape=f"B={b} W={w} K={kh} G={g} Hd={hd} bf16", ms=t_k, plain_ms=t_p,
+    return dict(shape=f"B={b} W={w} K={kh} G={g} Hd={hd} bf16{' cross' if cross else ''}",
+                ms=t_k, plain_ms=t_p,
                 library_ms=t_l, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, host_ms=t_host)
 
 
@@ -2681,13 +2715,457 @@ def phase_granite() -> dict:
     phase_breakdown(cfg, params, eng, res)
     prefill = engine_prefill_ms(eng, cfg, 16, LONG_TOKENS, 0)
     print(f"[granite] engine prefill of the 16-token prompt: {prefill:.3f} ms", flush=True)
-    del eng, res["engine"], params
+    del eng, res["engine"]
+    gc.collect()
     frow = flash_layout_row("granite", 1, 16 + LONG_TOKENS, cfg.num_kv_heads,
                             cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
     rows = kernel_width_rows("granite", cfg.d_model, cfg.d_expert,
                              ((8, 1), (64, 1), (64, 16)))
-    return {"launches": res["launches_engine"], "tpot_ms": res["tpot_ms"],
-            "peak_gb": res["peak_gb"], "prefill_ms": prefill, "flash": frow, "rows": rows}
+    return {"cfg": cfg, "params": params, "launches": res["launches_engine"],
+            "tpot_ms": res["tpot_ms"], "peak_gb": res["peak_gb"], "prefill_ms": prefill,
+            "flash": frow, "rows": rows}
+
+
+DISPATCH_BATCH, DISPATCH_SEQ = 2, 512        # loss_fn's tokens: 1024 rows a MoE layer
+DISPATCH_RUNS = ("grouped", "dense", "scatter-no-drop", "einsum-no-drop", "scatter-config",
+                 "einsum-config", "scatter-tight", "einsum-tight")
+# below the config's factor, so pairs drop (the random router balances its
+# 1024 rows well enough that none drops at 1.25)
+DISPATCH_TIGHT = 0.5
+# One MoE layer's output against its reference dispatch on the same rows
+# (max |out - ref| / max |ref|).  fp32 sums in other orders.  In bf16 each
+# dispatch rounds its own products and partial sums; a pair with scatter on
+# either side (it adds a token's 8 contributions in bf16, in an order that
+# varies run to run) read 1.1e-2 to 2.2e-2 on an H100 80GB HBM3 at 700 W,
+# grouped against dense 9.1e-3 and einsum against dense 5.7e-3 in every
+# run.  Each pair is held to the larger bound of its two dispatches.
+DISPATCH_LAYER_RTOL = {"float32": {"": 1e-4},
+                       "bfloat16": {"": 1.5e-2, "scatter": 3e-2}}
+# Whole-model losses, relative.  fp32: a router input 1e-7 away can flip a
+# near tie among 32 layers x 1024 rows x 40 logits and move the loss by
+# about 1e-4 (on an H100 80GB HBM3 at 700 W: scatter against dense 8.4e-5,
+# grouped 1.8e-7).  bf16 losses differ by about 1% (grouped 167.68, dense
+# 169.38; every pair read 2.1e-3 to 1.2e-2 on the same card): tied
+# embeddings of unit scale give this random model logits in the hundreds,
+# and each dispatch's own roundings over 32 layers move the loss that much,
+# so the bf16 bound only guards against gross faults.  The tight factor's
+# gaps are not gated: with half the pairs dropped, one flipped tie hands
+# capacity slots to other tokens in every later layer (fp32 einsum against
+# scatter 1.28e-2 on the same card, while every layer on the same rows
+# placed the same pairs within the per-layer tolerance); those checks stand.
+DISPATCH_LOSS_RTOL = {"float32": 1e-3, "bfloat16": 2.5e-2}
+
+
+def _dispatch_factor(tag: str, cfg):
+    return {"": None, "no-drop": cfg.num_experts / cfg.top_k, "config": cfg.capacity_factor,
+            "tight": DISPATCH_TIGHT}[tag]
+
+
+def _layer_rtol(dtype: str, method: str, ref_method: str) -> float:
+    bounds = DISPATCH_LAYER_RTOL[dtype]
+    return max(bounds.get(m, bounds[""]) for m in (method, ref_method))
+
+
+def _grouped_kernel_err(c, p, x) -> float:
+    """Kernel 1 at the grouped dispatch's own shapes (every padded expert on
+    blocks of rows, as ``grouped_topk_contrib`` launches it) against its
+    plain version on the same rows: max |k - p| / max |p| of the fp32
+    gate-weighted (row, rank) contributions, before the layer rounds them."""
+    import torch
+    from repro_torch.kernels.moe_gemm import grouped_topk_contrib, moe_ffn_ref
+    from repro_torch.models.moe import route
+    topk_idx, topk_gate = route(c, p, x)
+    n, e = x.shape[0], c.num_experts
+    w = [p[k][:e] for k in ("w_gate", "w_up", "w_down")]
+    k = grouped_topk_contrib(x, *w, topk_idx, topk_gate)
+    y = moe_ffn_ref(x.float().expand(e, n, x.shape[1]).contiguous(), *w)
+    plain = topk_gate[..., None] * y[topk_idx, torch.arange(n, device=x.device)[:, None]]
+    return float((k - plain).abs().max() / plain.abs().max())
+
+
+def _dispatch_method(name: str, cfg):
+    """A run's ``moe_method`` and its record.  "dense" is plain.  Every other
+    run is a callable that, in each MoE layer, also runs its reference on the
+    same rows: ``dense`` for ``grouped`` and the no-drop runs (factor E/k),
+    the other capacity dispatch at the config's factor and the tight one.  It records the
+    layer's relative error against the reference and that pair's bound
+    (``_layer_rtol``), whether the two load-balance terms are bitwise equal
+    (the same routing of the same rows), its drop fraction and, against the
+    other capacity dispatch, whether both keep the same (token, rank) pairs.
+    ``grouped`` also records kernel 1 against its plain version on the
+    layer's rows (``_grouped_kernel_err``)."""
+    import torch
+    from repro_torch.models.moe import moe_ff
+    method, _, tag = name.partition("-")
+    if method == "dense":
+        return "dense", None
+    factor = _dispatch_factor(tag, cfg)
+    ref_method = "dense" if tag in ("", "no-drop") else (
+        "einsum" if method == "scatter" else "scatter")
+    rec = {"err": [], "lb_equal": [], "drops": [], "same": [], "kernel_err": [],
+           "tol": _layer_rtol(cfg.dtype, method, ref_method)}
+
+    def call(c, p, x):
+        out, aux = moe_ff(c, p, x, method, cap_factor=factor)
+        ref, raux = moe_ff(c, p, x, ref_method, cap_factor=factor)
+        rec["err"].append(float((out.float() - ref.float()).abs().max()
+                                / ref.float().abs().max()))
+        rec["lb_equal"].append(bool(torch.equal(aux["load_balance_loss"],
+                                                raux["load_balance_loss"])))
+        if "kept" in aux:
+            rec["drops"].append(float(aux["drop_fraction"]))
+        if "kept" in raux:
+            rec["same"].append(bool(torch.equal(aux["kept"], raux["kept"])))
+        if method == "grouped":
+            rec["kernel_err"].append(_grouped_kernel_err(c, p, x))
+        return out, aux
+
+    return call, rec
+
+
+def _plain_method(name: str, cfg):
+    from repro_torch.models.moe import moe_ff
+    method, _, tag = name.partition("-")
+    if not tag:
+        return method
+    factor = _dispatch_factor(tag, cfg)
+    return lambda c, p, x: moe_ff(c, p, x, method, cap_factor=factor)
+
+
+def _dispatch_losses(cfg, params, batch, timed: bool) -> dict:
+    """``loss_fn`` under each of DISPATCH_RUNS with its per-layer reference
+    (``_dispatch_method``): loss and metrics; fails unless every layer is
+    within its pair's DISPATCH_LAYER_RTOL of its reference with a bitwise
+    equal load-balance term, kernel 1 is within KERNEL_TOL of its plain
+    version in every layer of ``grouped``, nothing drops at E/k, and
+    scatter and einsum keep the same pairs in every layer at the config's
+    factor.  With ``timed``, each
+    dispatch alone (``_plain_method``) timed, median of 3 (host clock around
+    work ending in a synchronize), and its peak device memory."""
+    import torch
+    from repro_torch.models import loss_fn
+    out = {}
+    with torch.no_grad():
+        for name in DISPATCH_RUNS:
+            method, rec = _dispatch_method(name, cfg)
+            loss, metrics = loss_fn(cfg, params, batch, moe_method=method)
+            row = {"loss": float(loss), **{k: float(v) for k, v in metrics.items()}}
+            if not math.isfinite(row["loss"]):
+                fail(f"dispatch {name} ({cfg.dtype}): loss not finite")
+            if rec is not None:
+                row["layer_err"], row["layer_tol"] = max(rec["err"]), rec["tol"]
+                if row["layer_err"] > rec["tol"]:
+                    fail(f"dispatch {name} ({cfg.dtype}): a MoE layer's output is "
+                         f"{row['layer_err']:.3e} from its reference's on the same rows "
+                         f"(tolerance {rec['tol']:g})")
+                if rec["kernel_err"]:
+                    row["kernel_err"] = max(rec["kernel_err"])
+                    if row["kernel_err"] > KERNEL_TOL:
+                        fail(f"dispatch {name} ({cfg.dtype}): kernel 1 is "
+                             f"{row['kernel_err']:.3e} from its plain version on a layer's "
+                             f"rows (tolerance {KERNEL_TOL:g})")
+                if not all(rec["lb_equal"]):
+                    fail(f"dispatch {name} ({cfg.dtype}): a load-balance term differs from "
+                         f"its reference's on the same rows")
+                if not all(rec["same"]):
+                    fail(f"dispatch {name} ({cfg.dtype}): scatter and einsum keep other "
+                         f"(token, rank) pairs in MoE layers "
+                         f"{[i for i, x in enumerate(rec['same']) if not x]}")
+                if rec["drops"]:
+                    row["drop_fraction"] = sum(rec["drops"]) / len(rec["drops"])
+                    if name.endswith("no-drop") and any(rec["drops"]):
+                        fail(f"dispatch {name} dropped pairs: {rec['drops']}")
+            if timed:
+                plain = _plain_method(name, cfg)
+                torch.cuda.reset_peak_memory_stats()
+                row["ms"] = _median_ms(lambda: loss_fn(cfg, params, batch, moe_method=plain),
+                                       reps=3)
+                row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out[name] = row
+    return out
+
+
+def _dispatch_gaps(runs) -> dict:
+    """Relative gaps: each no-drop run and grouped against dense (loss and
+    load-balance term), einsum against scatter at the config's factor (the
+    gated ones), then at the tight factor (printed only)."""
+    pairs = [(m, "dense", k) for m in ("grouped", "scatter-no-drop", "einsum-no-drop")
+             for k in ("loss", "load_balance_loss")] + [
+        (f"einsum-{t}", f"scatter-{t}", "loss") for t in ("config", "tight")]
+    return {f"{a} vs {b} {k}": abs(runs[a][k] - runs[b][k]) / abs(runs[b][k])
+            for a, b, k in pairs}
+
+
+def _gate_gaps(dtype: str, gaps: dict) -> None:
+    """Fails on a loss gap above DISPATCH_LOSS_RTOL (the tight factor's are
+    printed only); prints them all."""
+    tol = DISPATCH_LOSS_RTOL[dtype]
+    for k, v in gaps.items():
+        if "tight" not in k and v > tol:
+            fail(f"dispatch {dtype} {k}: relative gap {v:.3e} above {tol:g}")
+    print(f"[dispatch] {dtype} loss gaps (tolerance {tol:g}; the tight factor's not gated): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
+
+
+def phase_dispatch(cfg, params) -> dict:
+    """granite-moe's ``loss_fn`` on B=2 T=512 tokens under the four MoE
+    dispatches.  On the granite phase's bf16 parameters: the main path
+    (``grouped``, kernel 1's launches counted), every dispatch timed, and in
+    every MoE layer each run against its reference on the same rows
+    (``_dispatch_method``).  On the same parameters in fp32 the same.  In
+    both, the losses: ``grouped`` and the no-drop runs against ``dense``,
+    einsum against scatter at the config's and the tight factor
+    (``_gate_gaps``)."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_ffn_kernel
+    from repro_torch.models import loss_fn
+    from repro_torch.models.transformer import tree_map
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (DISPATCH_BATCH, DISPATCH_SEQ),
+                                     generator=gen, device="cuda", dtype=torch.int32)}
+    print(f"[dispatch] {cfg.name} loss_fn on B={DISPATCH_BATCH} T={DISPATCH_SEQ} "
+          f"({DISPATCH_BATCH * DISPATCH_SEQ} rows a MoE layer), {cfg.num_layers} layers, "
+          f"{cfg.num_experts} experts in {cfg.num_experts_padded} rows top-{cfg.top_k}; "
+          f"capacity factors {cfg.num_experts / cfg.top_k:g} (E/k: none can drop), "
+          f"{cfg.capacity_factor:g} (the config's) and {DISPATCH_TIGHT:g}", flush=True)
+    _reset_launches()
+    with torch.no_grad():
+        loss_fn(cfg, params, batch, moe_method="grouped")      # the phase's main path
+    launches = moe_ffn_kernel.launches
+    if launches <= 0:
+        fail("loss_fn under the grouped dispatch launched no moe_ffn kernel")
+    runs = _dispatch_losses(cfg, params, batch, timed=True)
+    moe_ffn_kernel.launches = 0               # timing launches do not count
+    for name, r in runs.items():
+        print(f"[dispatch] bf16 {name:15s} loss {r['loss']:.6f} (ce {r['ce']:.6f}, load-balance "
+              f"{r['load_balance_loss']:.6f}"
+              + (f", drop fraction {r['drop_fraction']:.4f} a layer" if "drop_fraction" in r
+                 else "")
+              + (f", worst layer against its reference {r['layer_err']:.3e} (tolerance "
+                 f"{r['layer_tol']:g})" if "layer_err" in r else "")
+              + (f", kernel 1 against its plain version {r['kernel_err']:.3e} (tolerance "
+                 f"{KERNEL_TOL:g})" if "kernel_err" in r else "")
+              + f"): loss_fn {r['ms']:.3f} ms (CUDA-synchronized host clock, median of 3), "
+              f"peak device memory {r['peak_gb']:.2f} GB", flush=True)
+    gaps16 = _dispatch_gaps(runs)
+    _gate_gaps("bfloat16", gaps16)
+    p32 = tree_map(lambda t: t.float(), params)
+    runs32 = _dispatch_losses(dataclasses.replace(cfg, dtype="float32"), p32, batch,
+                              timed=False)
+    del p32
+    moe_ffn_kernel.launches = 0
+    gaps = _dispatch_gaps(runs32)
+    _gate_gaps("float32", gaps)
+    print("[dispatch] fp32: " + ", ".join(
+        f"{n} {r['loss']:.6f}" for n, r in runs32.items()) + "; worst layer against its "
+          "reference on the same rows " + ", ".join(
+        f"{n} {r['layer_err']:.3e}" for n, r in runs32.items() if "layer_err" in r)
+          + f" (tolerance {DISPATCH_LAYER_RTOL['float32']['']:g}), kernel 1 against its plain "
+          f"version under grouped {runs32['grouped']['kernel_err']:.3e} (tolerance "
+          f"{KERNEL_TOL:g}), load-balance terms bitwise equal on the same rows; scatter and "
+          f"einsum keep the same pairs in every layer, in bf16 and fp32; moe_ffn launches "
+          f"under grouped (bf16 main path) {launches}", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs, "runs32": runs32, "gaps": gaps,
+            "gaps_bf16": gaps16}
+
+
+ENCDEC_BATCH, FRONT_PROMPT, FRONT_TOKENS = 2, 16, 8
+# logits of a decode step against the teacher-forced sequence's at its
+# position, fp32: max |step - full| / max |full|
+TEACHER_TOL = 1e-4
+
+
+def _front_batch(cfg, b: int, dtype, seed: int) -> dict:
+    """A prompt of FRONT_PROMPT tokens and the stub frontend's embeddings
+    (256 frames or patches), from ``seed``, on the card."""
+    import torch
+    from repro_torch.models.frontends import synthetic_frontend_embeds
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"frontend_embeds": synthetic_frontend_embeds(cfg, gen, b, dtype=dtype, device="cuda"),
+            "tokens": torch.randint(0, cfg.vocab_size, (b, FRONT_PROMPT), generator=gen,
+                                    device="cuda", dtype=torch.int32)}
+
+
+def teacher_forced_gate(tag: str, cfg, params, batch, cache: int, full_logits) -> dict:
+    """``greedy_generate`` (its flash-decode launches counted) against the
+    same decode through ``prefill``/``decode_step`` and against the
+    teacher-forced full sequence ``full_logits(tokens)`` (B, T, V): equal
+    tokens, equal to the full sequence's argmax, and each step's logits
+    within TEACHER_TOL of the full sequence's at its position."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode_kernel
+    from repro_torch.models import decode_step, greedy_generate, prefill
+    _reset_launches()
+    toks = greedy_generate(cfg, params, batch, FRONT_TOKENS, max_cache_len=cache)
+    launches = flash_decode_kernel.launches
+    logits, state = prefill(cfg, params, batch, cache)
+    steps = [logits]
+    for i in range(1, FRONT_TOKENS):
+        logits, state = decode_step(cfg, params, toks[:, i - 1], state)
+        steps.append(logits)
+    if not torch.equal(torch.stack([torch.argmax(lg, -1) for lg in steps], 1).to(toks.dtype),
+                       toks):
+        fail(f"{tag}: greedy_generate's tokens differ from prefill/decode_step's argmax")
+    t = batch["tokens"].shape[1]
+    full = full_logits(torch.cat([batch["tokens"], toks[:, :-1]], 1))[:, t - 1:]
+    worst = 0.0
+    for i, lg in enumerate(steps):
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"{tag}: decode step {i}'s logits not finite")
+        worst = max(worst, float((lg - full[:, i]).abs().max() / full[:, i].abs().max()))
+    if not torch.equal(torch.argmax(full, -1).to(toks.dtype), toks):
+        fail(f"{tag}: greedy tokens differ from the teacher-forced sequence's argmax")
+    if worst > TEACHER_TOL:
+        fail(f"{tag}: decode logits differ from the teacher-forced sequence's by {worst:.3e}")
+    print(f"[{tag}] fp32 gate: greedy_generate tokens {toks.cpu().tolist()} == prefill/"
+          f"decode_step argmax == the teacher-forced sequence's argmax; step logits within "
+          f"{worst:.3e} of it (max |step - full| / max |full|, tolerance {TEACHER_TOL:g}); "
+          f"flash_decode launches {launches}", flush=True)
+    return {"worst": worst, "launches": launches}
+
+
+def timed_generate(tag: str, cfg, params, batch, cache: int, per_step: int) -> dict:
+    """The bf16 run: ``greedy_generate`` with the launch counts set to 0
+    just before it (flash decode must launch ``per_step`` times a decode
+    step), then prefill (median of 3) and each decode step alone
+    (CUDA-synchronized host clock; TPOT is their median), and the peak
+    device memory of it all."""
+    import statistics
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode_kernel
+    from repro_torch.models import decode_step, greedy_generate, prefill
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    toks = greedy_generate(cfg, params, batch, FRONT_TOKENS, max_cache_len=cache)
+    launches = flash_decode_kernel.launches
+    if launches != per_step * (FRONT_TOKENS - 1):
+        fail(f"{tag}: flash_decode launched {launches} times, not {per_step} a decode step")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size or \
+            tuple(toks.shape) != (batch["tokens"].shape[0], FRONT_TOKENS):
+        fail(f"{tag}: bf16 tokens of shape {tuple(toks.shape)} or out of the vocabulary")
+    prefill_ms = _median_ms(lambda: prefill(cfg, params, batch, cache), reps=3)
+    logits, state = prefill(cfg, params, batch, cache)
+    steps = []
+    for i in range(1, FRONT_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = decode_step(cfg, params, toks[:, i - 1], state)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{tag}: bf16 logits not finite")
+    flash_decode_kernel.launches = 0
+    out = {"tpot_ms": statistics.median(steps), "prefill_ms": prefill_ms, "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "tokens": toks.cpu().tolist()}
+    print(f"[{tag}] bf16: greedy_generate tokens {out['tokens']}; flash_decode launches "
+          f"{launches} ({per_step} a decode step); TPOT median {out['tpot_ms']:.3f} ms over "
+          f"{len(steps)} decode steps (each step alone, CUDA-synchronized host clock); prefill "
+          f"{prefill_ms:.3f} ms (median of 3); peak device memory {out['peak_gb']:.2f} GB",
+          flush=True)
+    return out
+
+
+def phase_encdec() -> dict:
+    """seamless-m4t-large-v2 at full width and depth: the fp32 gate, then
+    the bf16 run, through the encoder, the cross memories and the decoder
+    with self and cross attention on the flash-decode kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.encdec import encdec_seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("seamless-m4t-large-v2")
+    cache = FRONT_PROMPT + FRONT_TOKENS
+    print(f"[encdec] {full.name}: {full.num_encoder_layers} encoder and {full.num_layers} "
+          f"decoder layers, d_model {full.d_model}, heads {full.num_heads}/{full.num_kv_heads} "
+          f"(G={full.num_heads // full.num_kv_heads}, Hd {full.resolved_head_dim}), d_ff "
+          f"{full.d_ff}, vocab {full.vocab_size}, {full.norm_type}; "
+          f"{full.param_count() / 1e9:.3f} B parameters; B={ENCDEC_BATCH}, 256 frames of "
+          f"{full.frontend_dim}, prompt {FRONT_PROMPT}, {FRONT_TOKENS} tokens; cut: the gate "
+          f"runs fp32 weights ({full.param_count() * 4 / 1e9:.1f} GB), the timed run bf16",
+          flush=True)
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda")
+    batch = _front_batch(cfg32, ENCDEC_BATCH, torch.float32, seed=1)
+    with torch.no_grad():
+        gate = teacher_forced_gate(
+            "encdec", cfg32, params, batch, cache,
+            lambda toks: encdec_seq(cfg32, params, batch["frontend_embeds"], toks)[0])
+    if gate["launches"] != 2 * full.num_layers * (FRONT_TOKENS - 1):
+        fail(f"encdec: flash_decode launched {gate['launches']} times in the fp32 gate, not "
+             f"self + cross in each of {full.num_layers} layers a decode step")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(full, seed=0, device="cuda")
+    batch = _front_batch(full, ENCDEC_BATCH, torch.bfloat16, seed=1)
+    run = timed_generate("encdec", full, params, batch, cache, 2 * full.num_layers)
+    del params
+    rows = {"self": flash_layout_row("encdec", ENCDEC_BATCH, cache, full.num_kv_heads,
+                                     full.num_heads // full.num_kv_heads, full.resolved_head_dim),
+            "cross": flash_layout_row("encdec", ENCDEC_BATCH, 256, full.num_kv_heads,
+                                      full.num_heads // full.num_kv_heads,
+                                      full.resolved_head_dim, cross=True)}
+    return dict(run, gate=gate, flash=rows)
+
+
+VLM_GATE_LAYERS = 4        # fp32 at all 48 layers would be ~80 GB
+
+
+def phase_vlm() -> dict:
+    """internvl2-26b at full width: the fp32 gate at 4 layers, then the
+    bf16 run at full depth, 256 patch embeddings prepended to the prompt,
+    a cache holding them all (``max_cache_len = 256 + 16 + 8``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import lm_seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("internvl2-26b")
+    n_front = full.frontend_tokens
+    cache = n_front + FRONT_PROMPT + FRONT_TOKENS
+    print(f"[vlm] {full.name}: d_model {full.d_model}, heads {full.num_heads}/"
+          f"{full.num_kv_heads} (G={full.num_heads // full.num_kv_heads}, Hd "
+          f"{full.resolved_head_dim}), d_ff {full.d_ff}, vocab {full.vocab_size}, frontend dim "
+          f"{full.frontend_dim}; {full.param_count() / 1e9:.3f} B parameters at "
+          f"{full.num_layers} layers; B=1, {n_front} patches, prompt {FRONT_PROMPT}, "
+          f"{FRONT_TOKENS} tokens, cache {cache}; cut: the fp32 gate runs {VLM_GATE_LAYERS} "
+          f"layers", flush=True)
+    cfg32 = dataclasses.replace(full, dtype="float32", num_layers=VLM_GATE_LAYERS)
+    params = init_params(cfg32, seed=0, device="cuda")
+    batch = _front_batch(cfg32, 1, torch.float32, seed=2)
+
+    def full_logits(toks):
+        logits, aux, _ = lm_seq(cfg32, params, toks, frontend_embeds=batch["frontend_embeds"])
+        return logits[:, aux["n_front"]:]
+
+    with torch.no_grad():
+        gate = teacher_forced_gate("vlm", cfg32, params, batch, cache, full_logits)
+    if gate["launches"] != VLM_GATE_LAYERS * (FRONT_TOKENS - 1):
+        fail(f"vlm: flash_decode launched {gate['launches']} times in the fp32 gate, not once "
+             f"in each of {VLM_GATE_LAYERS} layers a decode step")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(full, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[vlm] random bf16 parameters from seed 0, {full.num_layers} layers: "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card", flush=True)
+    batch = _front_batch(full, 1, torch.bfloat16, seed=2)
+    run = timed_generate("vlm", full, params, batch, cache, full.num_layers)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = flash_layout_row("vlm", 1, cache, full.num_kv_heads,
+                           full.num_heads // full.num_kv_heads, full.resolved_head_dim)
+    return dict(run, gate=gate, flash=row, layers=full.num_layers)
 
 
 def eng_recall(res) -> str:
@@ -2738,6 +3216,11 @@ def main():
     qwen3_serve = phase_qwen3_serve(qcfg, qparams)
     del qcfg, qparams
     granite = phase_granite()
+    gcfg, gparams = granite.pop("cfg"), granite.pop("params")
+    dispatch = phase_dispatch(gcfg, gparams)
+    del gcfg, gparams
+    encdec = phase_encdec()
+    vlm = phase_vlm()
     gc.collect()
     torch.cuda.empty_cache()
     irows = phase_int8()
@@ -2753,7 +3236,7 @@ def main():
           + "; single-stream phases, peak while building and decoding: " + ", ".join(
               f"{n} {r['peak_gb']:.2f} GB" for n, r in (
                   ("long", long), ("jamba-long", jamba_long), ("qwen3", qwen3),
-                  ("granite", granite))))
+                  ("granite", granite), ("encdec bf16", encdec), ("vlm bf16", vlm))))
     print(f"[prefill] engine prefill (main model, then the SEP shadow): slice "
           f"{moe['prefill_ms']:.3f} ms (16 tokens), long {long['prefill_ms']:.3f} ms "
           f"({LONG_PROMPT} tokens at the 4096 bucket), jamba-slice {jamba['prefill_ms']:.3f} ms "
@@ -2762,7 +3245,9 @@ def main():
           f"{granite['prefill_ms']:.3f} ms (16 tokens)")
     print(f"[tpot] single-stream TPOT medians: long {long['tpot_ms']:.3f} ms, jamba-long "
           f"{jamba_long['tpot_ms']:.3f} ms, qwen3 {qwen3['tpot_ms']:.3f} ms, granite "
-          f"{granite['tpot_ms']:.3f} ms")
+          f"{granite['tpot_ms']:.3f} ms; encdec (B={ENCDEC_BATCH}) {encdec['tpot_ms']:.3f} ms, "
+          f"vlm ({vlm['layers']} layers) {vlm['tpot_ms']:.3f} ms; prefill encdec "
+          f"{encdec['prefill_ms']:.3f} ms, vlm {vlm['prefill_ms']:.3f} ms")
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",
@@ -2778,6 +3263,7 @@ def main():
         "qwen3_launches": qwen3["launches"]["moe_ffn"],
         "qwen3_serve_launches": qwen3_serve["launches"]["moe_ffn"],
         "granite_launches": granite["launches"]["moe_ffn"],
+        "dispatch_launches": dispatch["launches"],
         "top8_widths": list(qwen3["rows"].values()) + list(granite["rows"].values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2814,7 +3300,9 @@ def main():
         "qwen3_launches": qwen3["launches"]["flash_decode"],
         "qwen3_serve_launches": qwen3_serve["launches"]["flash_decode"],
         "granite_launches": granite["launches"]["flash_decode"],
-        "new_layouts": [long["flash"], qwen3_serve["flash"], granite["flash"]],
+        "encdec_launches": encdec["launches"], "vlm_launches": vlm["launches"],
+        "new_layouts": [long["flash"], qwen3_serve["flash"], granite["flash"],
+                        encdec["flash"]["self"], encdec["flash"]["cross"], vlm["flash"]],
         "verify_ms": vrow["ms"], "verify_plain_ms": vrow["plain_ms"],
         "verify_library_ms": vrow["library_ms"], "verify_bound_ms": vrow["bound_ms"],
         "verify_bound_by": vrow["bound_by"], "verify_max_abs_err": vrow["max_abs_err"],

@@ -352,7 +352,8 @@ class ODMoEEngine:
         prefilled KV moves into pool pages and ``cache_list`` is the paged
         stand-in: one request (B=1) keyed by ``rid``, whose prompt pages
         the caller has made sure fit."""
-        logits, state = prefill(self.cfg, self.params, batch, max_cache_len)
+        logits, state = prefill(self.cfg, self.params, batch, max_cache_len,
+                                moe_method="grouped")
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         cache_list = self._unstack(state["caches"])
         if kv_pool is not None:

@@ -82,7 +82,8 @@ class SEPShadow:
     # ------------------------------------------------------- functional
     @torch.no_grad()
     def prefill_state(self, batch, max_cache_len: int) -> dict:
-        logits, state = prefill(self.cfg, self.params, batch, max_cache_len)
+        logits, state = prefill(self.cfg, self.params, batch, max_cache_len,
+                                moe_method="grouped")
         return dict(state, token=torch.argmax(logits, dim=-1).to(torch.int32))
 
     @torch.no_grad()

@@ -3,6 +3,9 @@
   * ``attn_seq``    — full-sequence causal attention (prefill); above
     ``BLOCKWISE_THRESHOLD`` tokens it runs ``attn_seq_blockwise``.
   * ``attn_decode`` — single-token decode against the cache.
+  * ``cross_attn_*`` — encoder-decoder cross attention over a fixed
+    memory; one decoder row (``cross_attn_decode``) runs through the
+    flash-decode kernel with the memory as its cache.
 
 KV cache layout (per layer): ``{"k","v": (B, W, n_kv, hd), "pos": (B, W)}``
 where ``W`` is ``sliding_window`` if set, else the max sequence length,
@@ -44,7 +47,8 @@ def seq_bucket(n: int) -> int:
 
 
 # --------------------------------------------------------------------- init
-def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
+def init_attention(gen, cfg: ModelConfig, dtype, device, cross: bool = False) -> dict:
+    """A cross-attention block (``cross``) never has a qkv bias."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     p = {
         "wq": dense_init(gen, (d, cfg.num_heads * hd), dtype, device=device),
@@ -52,7 +56,7 @@ def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
         "wv": dense_init(gen, (d, cfg.num_kv_heads * hd), dtype, device=device),
         "wo": dense_init(gen, (cfg.num_heads * hd, d), dtype, device=device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", cfg.num_heads), ("bk", cfg.num_kv_heads),
                         ("bv", cfg.num_kv_heads)):
             p[name] = torch.zeros((n * hd,), dtype=dtype, device=device)
@@ -235,16 +239,18 @@ def decode_qkv(cfg: ModelConfig, params, x, pos):
     return row_blocks(qkv, x, pos)
 
 
-def decode_attend(cfg: ModelConfig, params, q, cache, pos, dtype):
+def decode_attend(cfg: ModelConfig, params, q, cache, pos, dtype, window: int = None):
     """The core and output projection of a decode step: each row's query
     against its own cache row through ``flash_decode``, rounded once to
-    ``dtype``, then ``wo`` in fixed row blocks."""
+    ``dtype``, then ``wo`` in fixed row blocks.  ``window`` defaults to the
+    cache's rule (its width under a sliding window, else none)."""
     w = cache["k"].shape[1]
+    if window is None:
+        window = w if cfg.sliding_window else 0
     b, _, h, hd = q.shape
     qg = q[:, 0].reshape(b, cfg.num_kv_heads, h // cfg.num_kv_heads, hd).contiguous()
     o = flash_decode(qg, cache["k"], cache["v"], cache["pos"], pos.to(torch.int32),
-                     window=w if cfg.sliding_window else 0,
-                     soft_cap=cfg.logit_soft_cap or 0.0)
+                     window=window, soft_cap=cfg.logit_soft_cap or 0.0)
     return row_blocks(lambda t: t @ params["wo"], o.to(dtype).reshape(b, 1, h * hd))
 
 
@@ -272,3 +278,44 @@ def attn_decode(cfg: ModelConfig, params, x, cache, pos) -> Tuple[torch.Tensor, 
     cache["v"][b_idx, slot] = v[:, 0]
     cache["pos"][b_idx, slot] = pos.to(torch.int32)
     return decode_attend(cfg, params, q, cache, pos, x.dtype), cache
+
+
+# -------------------------------------------------------------- cross-attn
+def cross_attn_memory(cfg: ModelConfig, params, enc_out) -> dict:
+    """K/V over the encoder output, computed once per request."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    return {"k": (enc_out @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd),
+            "v": (enc_out @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)}
+
+
+def cross_attn(cfg: ModelConfig, params, x, memory, memory_mask=None):
+    """x: (B,T,d) attends over the memory K/V (no RoPE, no causal mask,
+    no padding of the key axis, as in the reference); ``memory_mask``
+    (B,S) bool hides frames."""
+    b, t, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, t, cfg.num_heads, cfg.resolved_head_dim)
+    scores = _gqa_scores(cfg, q, memory["k"]).float()
+    if memory_mask is not None:
+        scores = torch.where(memory_mask[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    return _gqa_out(cfg, probs, memory["v"], params)
+
+
+def cross_attn_decode(cfg: ModelConfig, params, x, memory, pos, memory_mask=None):
+    """One decoder row per batch row (x: (B,1,d), at positions ``pos``)
+    over the memory, through ``flash_decode`` with the memory K/V as the
+    cache: every frame's slot position is 0 (-1 where ``memory_mask``
+    hides it), so the kernel's ``0 <= kpos <= pos`` admits every frame.
+    It computes in fp32 and rounds once, to the model dtype, before ``wo``,
+    as ``attn_decode`` does; the reference's ``cross_attn`` rounds its
+    scale and probabilities first, so the two agree exactly in semantics
+    only at fp32.  The query projection runs in fixed row blocks."""
+    b, s = memory["k"].shape[:2]
+    q = row_blocks(lambda t: t @ params["wq"], x).reshape(b, 1, cfg.num_heads,
+                                                          cfg.resolved_head_dim)
+    kpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    if memory_mask is not None:
+        kpos = torch.where(memory_mask, kpos, -1)
+    cache = {"k": memory["k"], "v": memory["v"], "pos": kpos}
+    return decode_attend(cfg, params, q, cache, pos, x.dtype, window=0)

@@ -1,4 +1,5 @@
-"""Decoder-only LM assembled from blocks.
+"""Decoder-only LM assembled from blocks; a VLM's projected modality
+embeddings are prepended to its token embeddings.
 
 Layers are grouped into the smallest repeating pattern (period P) and
 its repeats (R = L / P); the parameters of each pattern position are
@@ -42,6 +43,23 @@ def tree_stack(trees):
     return torch.stack(trees)
 
 
+def stack_made(make, reps: int):
+    """``tree_stack([make() for _ in range(reps)])`` one repeat at a time:
+    each made tree is copied into preallocated stacked leaves and dropped,
+    so a full-size model's init holds its stack and one layer, not every
+    layer twice.  ``make`` is called ``reps`` times in order (the same
+    random draws as the list form)."""
+    made = make()
+    out = tree_map(lambda a: a.new_empty((reps,) + tuple(a.shape)), made)
+    for r in range(reps):
+        if r:
+            made = make()
+        for dst, src in zip(tree_leaves(out), tree_leaves(made)):
+            dst[r].copy_(src)
+        made = None         # this repeat's tree goes before the next is made
+    return out
+
+
 def tree_concat(trees, dim: int = 0):
     """Concatenate same-structured trees leaf by leaf along ``dim``."""
     first = trees[0]
@@ -73,11 +91,28 @@ def init_lm(gen, cfg: ModelConfig, dtype, device) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = {"w": dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                           dtype, device=device)}
+    if cfg.frontend:
+        params["frontend_proj"] = frontend_proj(gen, cfg, dtype, device)
     params["layers"] = tuple(
-        tree_stack([init_block(gen, cfg, kinds, dtype, device)
-                    for _ in range(reps)])
+        stack_made(lambda: init_block(gen, cfg, kinds, dtype, device), reps)
         for kinds in pattern)
     return params
+
+
+def frontend_proj(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """The projection of modality embeddings (``frontend_dim``) into the
+    model width."""
+    fd = cfg.frontend_dim or cfg.d_model
+    return {"w": dense_init(gen, (fd, cfg.d_model), dtype, device=device),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def project_frontend(params, embeds):
+    """``embeds @ w + b`` in the promoted dtype of the embeddings and the
+    projection, as the reference's mixed-dtype product computes it."""
+    proj = params["frontend_proj"]
+    dt = torch.promote_types(embeds.dtype, proj["w"].dtype)
+    return embeds.to(dt) @ proj["w"].to(dt) + proj["b"].to(dt)
 
 
 def layer_params(cfg: ModelConfig, params, layer_idx: int):
@@ -100,29 +135,50 @@ def decode_logits(cfg: ModelConfig, params, x):
     return row_blocks(lambda t: logits_from_hidden(cfg, params, t), x)[:, 0]
 
 
-# ---------------------------------------------------------------- sequence
-def lm_seq(cfg: ModelConfig, params, tokens, *, make_cache: bool = False,
-           max_cache_len: int = 0):
-    """Full-sequence forward.  Returns (logits (B,T,V), caches), where
-    caches is a tuple per pattern position of KV dicts stacked over
-    repeats (or None without ``make_cache``)."""
-    pattern, reps = cfg.pattern()
+# ------------------------------------------------------------------ embeds
+def input_embeddings(cfg: ModelConfig, params, tokens, frontend_embeds=None):
+    """Token embeddings, with the projected modality embeddings (B, N, fd)
+    prepended.  Returns (x, n_front)."""
     x = embed(tokens, params["embed"])
+    if not (cfg.frontend and frontend_embeds is not None):
+        return x, 0
+    fx = project_frontend(params, frontend_embeds.to(x.device))
+    return torch.cat([fx.to(x.dtype), x], dim=1), frontend_embeds.shape[1]
+
+
+# ---------------------------------------------------------------- sequence
+def lm_seq(cfg: ModelConfig, params, tokens, *, frontend_embeds=None,
+           make_cache: bool = False, max_cache_len: int = 0, moe_method="scatter"):
+    """Full-sequence forward.  Returns (logits (B,N+T,V), aux, caches):
+    ``aux`` holds the summed ``load_balance_loss``, ``topk`` (a tuple per
+    MoE pattern position of (R, B, N+T, k) routing decisions) and
+    ``n_front``, the N modality positions prepended; caches is a tuple per
+    pattern position of KV dicts stacked over repeats (or None without
+    ``make_cache``)."""
+    pattern, reps = cfg.pattern()
+    x, n_front = input_embeddings(cfg, params, tokens, frontend_embeds)
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
     caches = [[] for _ in pattern]
+    auxs = [[] for _ in pattern]
     for r in range(reps):
         for i, kinds in enumerate(pattern):
             lp = tree_map(lambda a: a[r], params["layers"][i])
-            x, cache = block_seq(cfg, lp, kinds, x, positions,
-                                 make_cache=make_cache, max_cache_len=max_cache_len)
+            x, aux, cache = block_seq(cfg, lp, kinds, x, positions, moe_method=moe_method,
+                                      make_cache=make_cache, max_cache_len=max_cache_len)
+            auxs[i].append(aux)
             caches[i].append(cache)
     logits = logits_from_hidden(cfg, params, x)
-    return logits, (tuple(tree_stack(c) for c in caches) if make_cache else None)
+    moe = [i for i, kinds in enumerate(pattern) if kinds[1] == MOE_FF]
+    lb = sum(a["load_balance_loss"] for i in moe for a in auxs[i])
+    aux = {"load_balance_loss": lb,
+           "topk": tuple(torch.stack([a["topk_idx"] for a in auxs[i]]) for i in moe),
+           "n_front": n_front}
+    return logits, aux, (tuple(tree_stack(c) for c in caches) if make_cache else None)
 
 
 # ------------------------------------------------------------------ decode
-def lm_decode(cfg: ModelConfig, params, token, caches, pos
+def lm_decode(cfg: ModelConfig, params, token, caches, pos, moe_method="grouped"
               ) -> Tuple[torch.Tensor, tuple, dict]:
     """One-token decode.  token: (B,) int; pos: (B,) absolute position.
 
@@ -136,7 +192,7 @@ def lm_decode(cfg: ModelConfig, params, token, caches, pos
         for i, kinds in enumerate(pattern):
             lp = tree_map(lambda a: a[r], params["layers"][i])
             lc = tree_map(lambda a: a[r], caches[i])
-            x, c, idx = block_decode(cfg, lp, kinds, x, lc, pos)
+            x, c, idx = block_decode(cfg, lp, kinds, x, lc, pos, moe_method=moe_method)
             new_caches[i].append(c)
             topk[i].append(idx)
     logits = decode_logits(cfg, params, x)

@@ -101,3 +101,26 @@ def profile_fields(profile):
 def fault_fields(events):
     """Fault events of either package as plain tuples."""
     return [(e.step, e.worker, e.kind, e.factor, e.moe_index) for e in events]
+
+
+def numpy_params(cfg, seed: int):
+    """Parameters in the layout of the JAX package's ``init_params(cfg)``
+    (leaf for leaf, from ``jax.eval_shape``, so nothing compiles), drawn
+    from a numpy generator: norm scales near 1, matrices scaled by their
+    fan-in, vectors small.  Returns the numpy tree; ``jax.tree.map(
+    jnp.asarray, tree)`` and ``repro_torch.models.from_numpy(tree)`` feed
+    it to both packages."""
+    from repro.models import init_params
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda k: init_params(cfg, k), jax.random.PRNGKey(0))
+
+    def leaf(path, s):
+        if "scale" in jax.tree_util.keystr(path):
+            a = 1.0 + 0.1 * rng.standard_normal(s.shape)
+        elif len(s.shape) >= 2:
+            a = rng.standard_normal(s.shape) * s.shape[-2] ** -0.5
+        else:
+            a = 0.1 * rng.standard_normal(s.shape)
+        return a.astype(s.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)

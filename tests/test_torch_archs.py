@@ -115,7 +115,8 @@ def test_decode_smoke_matches_jax(arch):
     jl, js = jprefill(cfg, params, {"tokens": jnp.asarray(toks)}, 32, moe_method="grouped")
     jstep = jax.jit(lambda p, tok, st: jdecode_step(cfg, p, tok, st))   # one trace, 3 steps
     tcfg, tparams = torch_cfg(cfg), bridge(params)
-    tl, ts = tm.prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, 32)
+    tl, ts = tm.prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, 32,
+                        moe_method="grouped")
     assert tuple(tl.shape) == (2, cfg.vocab_size)
     for _ in range(3):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -126,3 +127,42 @@ def test_decode_smoke_matches_jax(arch):
         tl, ts = tm.decode_step(tcfg, tparams, torch.from_numpy(np.array(tok)), ts)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert torch.argmax(tl, -1).tolist() == np.asarray(jnp.argmax(jl, -1)).tolist()
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs() if a not in DECODER_ONLY])
+def test_decode_smoke_encdec_and_frontend(arch):
+    """The decode smoke for the two archs with frame or patch embeddings
+    (seamless-m4t encoder-decoder, internvl2 VLM), reduced, on the port
+    alone: the JAX side only gives the parameter tree's shapes
+    (``jax.eval_shape``; its seamless decode smoke is a slow test).  A batch
+    of 2 prompts of 8 tokens with their embeddings, prefill into a 32-slot
+    cache, 3 greedy decode steps: finite logits of the vocabulary's width,
+    each within 5e-4 of the teacher-forced full-sequence logits at its
+    position (the reference's own check of a family)."""
+    from repro_torch.models.encdec import encdec_seq
+    from repro_torch.models.frontends import synthetic_frontend_embeds
+    from repro_torch.models.transformer import lm_seq
+    cfg = jget_config(arch).reduced()
+    shapes = jax.eval_shape(lambda k: jinit(cfg, k), jax.random.PRNGKey(1))
+    tcfg = torch_cfg(cfg)
+    params = tm.init_params(tcfg, seed=1, device="cpu")
+    assert [tuple(t.shape) for t in jax.tree.leaves(params)] == \
+        [tuple(s.shape) for s in jax.tree.leaves(shapes)]
+    front = synthetic_frontend_embeds(tcfg, torch.Generator().manual_seed(2), 2)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 8))
+                            .astype(np.int32))
+    logits, state = tm.prefill(tcfg, params, {"tokens": toks, "frontend_embeds": front}, 32)
+    steps = [logits]
+    for _ in range(3):
+        tok = torch.argmax(steps[-1], -1).to(torch.int32)
+        toks = torch.cat([toks, tok[:, None]], 1)
+        logits, state = tm.decode_step(tcfg, params, tok, state)
+        steps.append(logits)
+    if tcfg.is_encoder_decoder:
+        full, _ = encdec_seq(tcfg, params, front, toks)
+    else:
+        full, aux, _ = lm_seq(tcfg, params, toks, frontend_embeds=front)
+        full = full[:, aux["n_front"]:]
+    for i, lg in enumerate(steps):
+        assert tuple(lg.shape) == (2, cfg.vocab_size) and bool(torch.isfinite(lg).all())
+        np.testing.assert_allclose(lg.numpy(), full[:, 7 + i].numpy(), rtol=0, atol=5e-4)

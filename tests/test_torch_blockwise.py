@@ -165,7 +165,7 @@ def long_moe():
 def test_long_prompt_prefill_and_greedy_equal_jax(long_moe):
     cfg, tcfg, tparams, toks, jl, jtok = long_moe
     batch = {"tokens": torch.from_numpy(toks)}
-    tl, state = tm.prefill(tcfg, tparams, batch, LONG + 2)
+    tl, state = tm.prefill(tcfg, tparams, batch, LONG + 2, moe_method="grouped")
     np.testing.assert_allclose(tl.numpy(), jl, **LOGIT_TOL)
     assert state["pos"].tolist() == [LONG]
     assert state["caches"][0]["pos"].shape[-1] == LONG + 2

@@ -97,8 +97,25 @@ def test_serve_cli_runs_on_the_host_when_asked(capsys):
 
 
 def test_unported_models_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(tconfigs.get_config("seamless-m4t-large-v2").reduced(),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(tconfigs.get_config("internvl2-26b").reduced(), device="cpu")
+    """The encoder-decoder and frontend families were the last models the
+    port refused; now ``init_params`` of their reduced configs builds the
+    reference's parameter tree (keys, shapes and dtypes from
+    ``jax.eval_shape``, so nothing compiles), and only the engine refuses
+    an encoder-decoder config, with the reference's ``ValueError``."""
+    import jax
+    from repro.models import init_params as jinit
+    from repro_torch.core import ODMoEEngine
+    for arch in ("seamless-m4t-large-v2", "internvl2-26b"):
+        cfg = get_config(arch).reduced()
+        want = jax.eval_shape(lambda k: jinit(cfg, k), jax.random.PRNGKey(0))
+        got = tm.init_params(tconfigs.get_config(arch).reduced(), device="cpu")
+        flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
+        flat_got = jax.tree_util.tree_flatten_with_path(got)[0]
+        assert [jax.tree_util.keystr(p) for p, _ in flat_got] == \
+            [jax.tree_util.keystr(p) for p, _ in flat_want]
+        assert [tuple(t.shape) for _, t in flat_got] == [tuple(s.shape) for _, s in flat_want]
+        assert {t.dtype for _, t in flat_got} == {torch.float32}
+    seamless = tconfigs.get_config("seamless-m4t-large-v2").reduced()
+    params = tm.init_params(seamless, device="cpu")
+    with pytest.raises(ValueError, match="engine drives decoder-only models"):
+        ODMoEEngine(seamless, params, device="cpu")

@@ -661,7 +661,8 @@ def test_hybrid_composed_decode_rows_equal_solo_rows_on_the_card(dev):
     prompts = [torch.randint(0, 97, (1, n), generator=torch.Generator().manual_seed(n),
                              dtype=torch.int32).to(dev) for n in (9, 21, 14)]
     before = ssd_scan_kernel.launches
-    states = [prefill(HYBRID, params, {"tokens": t}, 32)[1] for t in prompts]
+    states = [prefill(HYBRID, params, {"tokens": t}, 32, moe_method="grouped")[1]
+              for t in prompts]
     assert ssd_scan_kernel.launches > before
     token = torch.tensor([5, 17, 40], dtype=torch.int32, device=dev)
     solo = [decode_step(HYBRID, params, token[i:i + 1], st)[0] for i, st in enumerate(states)]
@@ -1278,3 +1279,86 @@ def test_top8_engine_on_the_card_equals_greedy(dev, name, workers):
     assert torch.equal(toks, greedy_generate(cfg, params, batch, 6))
     assert max(int(e) for r in trace.records for lr in r.layers
                for e in lr.true.reshape(-1)) < cfg.num_experts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,kh,g,hd", [(2, 256, 16, 1, 64), (3, 37, 2, 1, 64),
+                                         (1, 280, 8, 6, 128), (2, 300, 4, 6, 32)])
+def test_flash_kernel_at_the_cross_attention_layout(dev, dtype, b, s, kh, g, hd):
+    """Cross-attention decode: every memory frame at slot position 0, some
+    hidden at -1 (a memory mask), decoder positions past 0; at G=1 (one
+    query head per kv head, the MMA tile's rows mostly padding) and at
+    G=6 (not a power of two)."""
+    gen = torch.Generator(device=dev).manual_seed(s + g)
+    q = torch.randn((b, kh, g, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kh, hd), generator=gen, device=dev).to(dtype)
+    pos = torch.randint(1, 50, (b,), generator=gen, device=dev, dtype=torch.int32)
+    for masked in (False, True):
+        kpos = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        if masked:
+            hide = torch.rand((b, s), generator=gen, device=dev) > 0.7
+            hide[:, 0] = False
+            kpos = torch.where(hide, -1, kpos).to(torch.int32)
+        o = flash_decode_kernel(q, k, v, kpos, pos)
+        p = flash_decode_ref(q, k, v, kpos, pos)
+        torch.cuda.synchronize()
+        assert float((o - p).abs().max() / p.abs().max()) <= REL_TOL
+
+
+ENCDEC = ModelConfig(name="t-encdec", family="audio", num_layers=2, d_model=64, num_heads=4,
+                     num_kv_heads=4, d_ff=128, vocab_size=97, is_encoder_decoder=True,
+                     num_encoder_layers=2, frontend="audio", frontend_tokens=7,
+                     frontend_dim=40, norm_type="layernorm")
+VLM = ModelConfig(name="t-vlm", family="vlm", num_layers=2, d_model=96, num_heads=6,
+                  num_kv_heads=1, d_ff=128, vocab_size=97, frontend="vision",
+                  frontend_tokens=5, frontend_dim=48)
+
+
+@pytest.mark.parametrize("cfg", [ENCDEC, VLM], ids=["encdec", "vlm"])
+def test_frame_and_patch_models_on_the_card_equal_the_host(dev, cfg):
+    """Greedy tokens of the tiny encoder-decoder (self and cross attention
+    through the flash-decode kernel) and VLM (G=6) on the card equal the
+    plain host path's, and the card's launched the kernel."""
+    from repro_torch.models.frontends import synthetic_frontend_embeds
+    from repro_torch.models.transformer import tree_map
+    params = init_params(cfg, seed=4, device="cpu")
+    front = synthetic_frontend_embeds(cfg, torch.Generator().manual_seed(5), 2)
+    toks = torch.randint(0, 97, (2, 6), generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32)
+    host = greedy_generate(cfg, params, {"tokens": toks, "frontend_embeds": front}, 6,
+                           max_cache_len=20)
+    before = flash_decode_kernel.launches
+    card = greedy_generate(cfg, tree_map(lambda t: t.to(dev), params),
+                           {"tokens": toks.to(dev), "frontend_embeds": front.to(dev)}, 6,
+                           max_cache_len=20)
+    per_step = (2 if cfg.is_encoder_decoder else 1) * cfg.num_layers
+    assert flash_decode_kernel.launches - before == 5 * per_step
+    assert torch.equal(card.cpu(), host)
+
+
+@pytest.mark.parametrize("method", ["dense", "scatter", "einsum", "grouped"])
+def test_moe_dispatches_on_the_card_equal_the_host(dev, method):
+    """Each dispatch's output and load-balance loss on the card within
+    1e-5 of the host's, fp32, at a capacity factor that drops pairs;
+    ``loss_fn`` under it too."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import tree_map
+    cfg = ModelConfig(name="t-moe-pad", family="moe", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=0, d_expert=96, vocab_size=97, num_experts=8,
+                      top_k=2, padded_experts=12)
+    params = init_params(cfg, seed=7, device="cpu")
+    ff = tree_map(lambda a: a[0], params["layers"][0])["ff"]
+    x = torch.randn((24, 64), generator=torch.Generator().manual_seed(8))
+    kw = {"cap_factor": 0.5} if method in ("scatter", "einsum") else {}
+    out, aux = moe_lib.moe_ff(cfg, ff, x, method, **kw)
+    out_d, aux_d = moe_lib.moe_ff(cfg, tree_map(lambda t: t.to(dev), ff), x.to(dev), method, **kw)
+    assert float((out_d.cpu() - out).abs().max()) <= 1e-5 * float(out.abs().max())
+    assert torch.equal(aux_d["topk_idx"].cpu(), aux["topk_idx"])
+    assert abs(float(aux_d["load_balance_loss"]) - float(aux["load_balance_loss"])) <= 1e-5
+    toks = torch.randint(0, 97, (2, 12), generator=torch.Generator().manual_seed(9))
+    loss, _ = loss_fn(cfg, params, {"tokens": toks}, moe_method=method)
+    loss_d, _ = loss_fn(cfg, tree_map(lambda t: t.to(dev), params), {"tokens": toks.to(dev)},
+                        moe_method=method)
+    assert abs(float(loss_d) - float(loss)) <= 1e-4 * abs(float(loss))

@@ -76,7 +76,8 @@ def test_greedy_and_logits_match_jax(hybrid, which):
     toks = prompt(cfg, 1, PROMPT)
     jl, js = jprefill(cfg, params, {"tokens": jnp.asarray(toks)}, PROMPT + N_TOK,
                       moe_method="grouped")
-    tl, ts = prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, PROMPT + N_TOK)
+    tl, ts = prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, PROMPT + N_TOK,
+                     moe_method="grouped")
     _logits_close(tl.numpy(), jl)
     want = [np.argmax(np.asarray(jl), -1).astype(np.int32)]
     jstep = jax.jit(jdecode_step, static_argnums=0)      # one trace for every step

@@ -45,7 +45,8 @@ def test_prefill_and_decode_logits_close(model):
     cfg, params, tcfg, tparams, toks = model
     jl, js = jprefill(cfg, params, {"tokens": jnp.asarray(toks)}, 20,
                       moe_method="grouped")
-    tl, ts = tm.prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, 20)
+    tl, ts = tm.prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, 20,
+                        moe_method="grouped")
     for _ in range(5):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         tok = jnp.argmax(jl, axis=-1).astype(jnp.int32)
@@ -69,7 +70,7 @@ def test_unbucketed_prefill_matches():
     jl, js = jprefill(cfg, params, {"tokens": jnp.asarray(toks)}, 13,
                       moe_method="grouped")
     tl, ts = tm.prefill(torch_cfg(cfg), bridge(params),
-                        {"tokens": torch.from_numpy(toks)}, 13)
+                        {"tokens": torch.from_numpy(toks)}, 13, moe_method="grouped")
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     np.testing.assert_array_equal(ts["caches"][0]["pos"].numpy(),
                                   np.asarray(js["caches"][0]["pos"]))

@@ -19,9 +19,10 @@ slice phase):
   and the median composed-step wall time by batch size.
 
 It imports ``repro_torch`` from ``<root>/src`` and builds that checkout's
-kernels into ``<root>/build``.  To compare two commits, unpack the older
-one with ``git archive`` into an ignored directory and run, in one call on
-the card::
+kernels into ``<root>/build``.  Both checkouts' ``prefill`` must take
+``moe_method``: the script asks for the grouped dispatch, the engine's.
+To compare two commits, unpack the older one with ``git archive`` into an
+ignored directory and run, in one call on the card::
 
     for r in OLD . . OLD; do python3 tools/torch_row_blocks_ab.py --root $r; done
 
@@ -104,7 +105,7 @@ def main() -> None:
     out["decode_step_ms"] = {}
     for b in (1, 4, 16):
         prompt = torch.randint(0, cfg.vocab_size, (b, 16), generator=gen).to(dev)
-        _, state = prefill(cfg, params, {"tokens": prompt}, 24)
+        _, state = prefill(cfg, params, {"tokens": prompt}, 24, moe_method="grouped")
         tok = prompt[:, -1].contiguous()
         ms = _median_ms(lambda: decode_step(cfg, params, tok, state), sync)
         out["decode_step_ms"][b] = ms
@@ -112,7 +113,8 @@ def main() -> None:
     out["prefill_ms"] = {}
     for t, cache in ((16, 24), (20, 28)):
         prompt = torch.randint(0, cfg.vocab_size, (1, t), generator=gen).to(dev)
-        ms = _median_ms(lambda: prefill(cfg, params, {"tokens": prompt}, cache), sync)
+        ms = _median_ms(lambda: prefill(cfg, params, {"tokens": prompt}, cache,
+                                        moe_method="grouped"), sync)
         out["prefill_ms"][f"T={t},cache={cache}"] = ms
         print(f"{tag} prefill B=1 T={t} cache {cache}: {ms:.3f} ms", flush=True)
 
