@@ -220,6 +220,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
              ``loss_fn`` time and peak memory.  The same on the parameters
              in fp32.  Losses agree within 1e-3 in fp32 and 2.5e-2 in bf16
              (at 0.5 a flipped tie moves later layers' slots: printed only).
+12e1. train — training at granite-moe's full width and depth on the
+             dispatch phase's bf16 parameters: ``loss_fn`` under ``grouped``
+             with grad enabled refuses (``ValueError``, kernel 1 has no
+             backward) before launching; then ``make_train_step`` (scatter,
+             per-block remat, AdamW with fp32 moments) for 3 steps on B=2
+             T=512 from ``batch_iterator``.  Gates: every loss finite; every
+             parameter leaf's gradient non-zero at step 1 (its ``mu``); the
+             loss on a held batch falls; no hand-written kernel launches; a
+             checkpoint of the trained parameters (``build/``, removed after)
+             loads into freshly initialised ones bit for bit, with a bitwise
+             equal held loss (deterministic algorithms on for both).  Prints
+             the step time (median of steps 2-3), peak memory and the
+             checkpoint's save and load times.
+12e2. train-ssm — first the SSD scan's ``autograd.Function`` (kernel
+             forward, kernel reverse scan) against autograd through its plain
+             version at a mamba2-2.7b layer's shape (B=1 NC=4 H=80 P=64
+             N=128): ``ds`` and ``dh0`` bitwise, ``d(decay)`` within 1e-5;
+             then mamba2-2.7b at full width and depth (64 layers, d_model
+             2560) through the train phase's steps and gates with B=2 T=1024
+             in 2 microbatches: ``ssd_scan`` launches exactly 3 x 64 x 2 a
+             step (forward, remat recompute, reverse scan).
 12f. encdec — seamless-m4t-large-v2 at full width and depth (24 encoder and
              24 decoder layers, d_model 1024, 16 heads of 64, vocab 256206),
              B=2, 256 frames, prompt 16, 8 tokens.  fp32 gate: ``greedy_generate``
@@ -2972,6 +2993,248 @@ def phase_dispatch(cfg, params) -> dict:
             "gaps_bf16": gaps16}
 
 
+TRAIN_STEPS = 3
+# AdamW for the train phases: the full rate from step 1, cosine decay over
+# 100 steps (3 are taken).  The rate is the largest of 1e-3, 3e-4 and 1e-4
+# at which the held loss of the random model falls over the 3 steps
+# (``tools/train_lr_probe.py``): on mamba2-2.7b (an H100 80GB HBM3 at
+# 700 W) every rate halves it at step 1,
+# and at 1e-3 and 3e-4 step 2 overshoots (held 292 -> 152 -> 1008 -> 324 at
+# 1e-3; 292 -> 209 -> 212 -> 191 at 1e-4); granite's falls at 1e-3.
+TRAIN_OPT = dict(warmup_steps=0, total_steps=100)
+TRAIN_LR = {"train": 1e-3, "train-ssm": 1e-4}
+TRAIN_GRAD_TOL = 1e-5     # d(decay) of the scan against autograd: a reduction in another order
+
+
+def train_batches(cfg, batch: int, seq: int, seed: int):
+    """A held batch and TRAIN_STEPS training batches from the Markov stream
+    (``batch_iterator``), on the card."""
+    import torch
+    from repro_torch.data import SyntheticConfig, batch_iterator
+    it = batch_iterator(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                        batch_size=batch, seed=seed))
+    on_card = lambda b: {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+    held = on_card(next(it))
+    return held, [on_card(next(it)) for _ in range(TRAIN_STEPS)]
+
+
+def held_loss(cfg, params, batch):
+    """``loss_fn`` (scatter) on the held batch without grad, with PyTorch's
+    deterministic algorithms on: the scatter dispatch's ``index_add_`` then
+    sums a token's expert outputs in a fixed order instead of by atomics,
+    so equal parameters give equal bits.  (cuBLAS is deterministic on one
+    stream; its workspace warning is muted.)"""
+    import warnings
+    import torch
+    from repro_torch.models import loss_fn
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss, _ = loss_fn(cfg, params, batch, moe_method="scatter")
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return loss
+
+
+def grouped_refused_under_grad(cfg, params) -> str:
+    """``loss_fn`` under ``grouped`` with grad enabled on parameters that
+    require it must raise ``ValueError`` before kernel 1 launches: the
+    kernel has no backward."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_ffn_kernel
+    from repro_torch.models import loss_fn
+    from repro_torch.models.transformer import tree_map
+    ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32, device="cuda")}
+    before = moe_ffn_kernel.launches
+    try:
+        loss_fn(cfg, ps, batch, moe_method="grouped")
+    except ValueError as err:
+        if moe_ffn_kernel.launches != before:
+            fail("kernel 1 launched before loss_fn under grouped refused to differentiate it")
+        return str(err)
+    fail("loss_fn under grouped with grad enabled did not refuse (kernel 1 has no backward)")
+
+
+def ssd_grad_gate(h: int, p: int, n: int) -> dict:
+    """The scan's ``autograd.Function`` on the card (kernel forward, kernel
+    reverse scan) against autograd through ``ssd_scan_ref`` on the same
+    inputs and upstream gradients, at a Mamba layer's shape (B=1 NC=4):
+    ``ds`` and ``dh0`` bitwise, ``d(decay)`` within TRAIN_GRAD_TOL of its
+    largest."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_kernel, ssd_scan_ref
+    s, decay, h0 = ssd_inputs(1, 4, h, p, n, seed=17, with_h0=True)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    g_in = torch.randn(s.shape, generator=gen, device="cuda")
+    g_last = torch.randn(h0.shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (ssd_scan, ssd_scan_ref):
+        ins = [t.clone().requires_grad_(True) for t in (s, decay, h0)]
+        before = ssd_scan_kernel.launches
+        outs = fn(*ins)
+        grads.append(torch.autograd.grad(outs, ins, grad_outputs=(g_in, g_last)))
+        torch.cuda.synchronize()
+        if fn is ssd_scan and ssd_scan_kernel.launches - before != 2:
+            fail(f"the scan's forward and backward launched the kernel "
+                 f"{ssd_scan_kernel.launches - before} times, not 2")
+    (ds, dd, dh0), (rs, rd, rh0) = grads
+    errs = {"ds": float((ds - rs).abs().max()), "dh0": float((dh0 - rh0).abs().max()),
+            "decay": float((dd - rd).abs().max() / rd.abs().max())}
+    print(f"[train-ssm] ssd_scan gradient at B=1 NC=4 H={h} P={p} N={n} (kernel forward and "
+          f"reverse scan) against autograd through its plain version: ds max|k-p| "
+          f"{errs['ds']:.3e}, dh0 {errs['dh0']:.3e} (both bitwise required), d(decay) "
+          f"{errs['decay']:.3e} of its largest (tolerance {TRAIN_GRAD_TOL:g})", flush=True)
+    if not (torch.equal(ds, rs) and torch.equal(dh0, rh0)):
+        fail("the scan's ds or dh0 through the kernel differs from autograd through its "
+             "plain version")
+    if errs["decay"] > TRAIN_GRAD_TOL:
+        fail(f"the scan's d(decay) is {errs['decay']:.3e} from autograd's")
+    ssd_scan_kernel.launches = 0          # comparison launches do not count
+    return errs
+
+
+def phase_train(tag: str, cfg, params, batch: int, seq: int, n_mb: int, expect: dict) -> dict:
+    """``make_train_step`` (scatter, remat, AdamW with fp32 moments) for
+    TRAIN_STEPS steps on ``params`` in place, ``n_mb`` microbatches.  Gates:
+    every loss finite; after step 1 every leaf of ``mu`` (``(1 - beta1)``
+    times the clipped gradient) has a non-zero element; the held batch's
+    loss falls; each kernel's launches over the steps equal ``expect``; a
+    checkpoint of the trained parameters loads into freshly initialised
+    ones bit for bit, and the held loss on them is bitwise the same."""
+    import statistics
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.launch.serve import KERNELS
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    held, batches = train_batches(cfg, batch, seq, seed=3)
+    print(f"[{tag}] {cfg.name}: {cfg.param_count() / 1e9:.3f} G parameters "
+          f"({cfg.param_count() * 2 / 1e9:.2f} GB bf16), {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}; AdamW fp32 moments "
+          f"({cfg.param_count() * 8 / 1e9:.2f} GB), lr {TRAIN_LR[tag]:g}, scatter, remat on, "
+          f"B={batch} T={seq} from batch_iterator, {n_mb} microbatch(es), {TRAIN_STEPS} steps",
+          flush=True)
+    before = held_loss(cfg, params, held)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR[tag], **TRAIN_OPT),
+                           moe_method="scatter", n_microbatches=n_mb, remat=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        print(f"[{tag}] step {i + 1}: loss {losses[-1]:.4f}, grad norm "
+              f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.2e}, {times[-1] * 1e3:.1f} ms",
+              flush=True)
+        if not math.isfinite(losses[-1]):
+            fail(f"{tag}: step {i + 1} loss is not finite ({losses[-1]})")
+        if i == 0:
+            silent = [j for j, mu in enumerate(tree_leaves(opt["mu"])) if not bool(mu.any())]
+            if silent:
+                fail(f"{tag}: {len(silent)} parameter leaves got an all-zero gradient at "
+                     f"step 1 (leaf indices {silent[:8]})")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    if launches != expect:
+        fail(f"{tag}: kernel launches over the steps {launches}, expected {expect}")
+    after = held_loss(cfg, params, held)
+    if not float(after) < float(before):
+        fail(f"{tag}: the held batch's loss did not fall ({float(before)} -> {float(after)})")
+    path = os.path.join(ROOT, "build", f"train_{tag}.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(path, params, step=TRAIN_STEPS)
+    t_save = time.perf_counter() - t0
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = init_params(cfg, seed=1, device="cuda")
+    t0 = time.perf_counter()
+    loaded, _, saved_step = load_checkpoint(path, fresh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    ckpt_gb = os.path.getsize(path) / 1e9
+    os.remove(path)
+    del fresh
+    if saved_step != TRAIN_STEPS or not all(
+            torch.equal(a, c) for a, c in zip(tree_leaves(loaded), tree_leaves(params))):
+        fail(f"{tag}: the checkpoint did not restore every parameter bit for bit")
+    reloaded = held_loss(cfg, loaded, held)
+    if not torch.equal(reloaded, after):
+        fail(f"{tag}: held loss on the reloaded parameters {float(reloaded)!r} != "
+             f"{float(after)!r}")
+    del loaded
+    step_ms = statistics.median(times[1:]) * 1e3
+    print(f"[{tag}] losses {', '.join(f'{x:.4f}' for x in losses)} (finite); every leaf's "
+          f"gradient non-zero at step 1; held batch {float(before):.4f} -> "
+          f"{float(after):.4f}; step time {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}, "
+          f"CUDA-synchronized host clock; step 1 {times[0] * 1e3:.1f} ms), peak device memory "
+          f"over the steps {peak:.2f} GB; launches over the steps {launches}", flush=True)
+    print(f"[{tag}] checkpoint round trip: {ckpt_gb:.2f} GB npz saved in {t_save:.1f} s, "
+          f"loaded into fresh parameters in {t_load:.1f} s; every leaf bitwise equal, held "
+          f"loss on them bitwise equal ({float(reloaded)!r})", flush=True)
+    return {"params": params, "losses": losses, "held": (float(before), float(after)),
+            "step_ms": step_ms, "step1_ms": times[0] * 1e3, "peak_gb": peak,
+            "launches": launches, "save_s": t_save, "load_s": t_load, "ckpt_gb": ckpt_gb}
+
+
+TRAIN_BATCH, TRAIN_SEQ = 2, 512             # granite: the dispatch phase's B and T
+SSM_BATCH, SSM_SEQ, SSM_MICROBATCHES = 2, 1024, 2
+
+
+def phase_train_granite(cfg, params) -> dict:
+    """Training at granite-moe's full width and depth (the dispatch phase's
+    bf16 parameters): ``grouped`` refuses under grad, then
+    ``phase_train``; the step runs no hand-written kernel."""
+    msg = grouped_refused_under_grad(cfg, params)
+    print(f"[train] loss_fn under grouped with grad enabled refused before launching: "
+          f"ValueError({msg!r})", flush=True)
+    expect = {name: 0 for name in ("moe_ffn", "moe_ffn_packed", "flash_decode", "ssd_scan",
+                                   "int8_matmul")}
+    return phase_train("train", cfg, params, TRAIN_BATCH, TRAIN_SEQ, 1, expect)
+
+
+def phase_train_ssm() -> dict:
+    """Training mamba2-2.7b at full width and depth: the scan's gradient
+    gate, then ``phase_train`` with 2 microbatches; ``ssd_scan`` launches
+    3 times a Mamba layer a microbatch (forward, remat recompute, reverse
+    scan)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("mamba2-2.7b")
+    errs = ssd_grad_gate(cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train-ssm] cut: none ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, N={cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size})", flush=True)
+    params = init_params(cfg, seed=0, device="cuda")
+    per_step = 3 * cfg.num_layers * SSM_MICROBATCHES
+    expect = {name: 0 for name in ("moe_ffn", "moe_ffn_packed", "flash_decode",
+                                   "int8_matmul")}
+    expect["ssd_scan"] = TRAIN_STEPS * per_step
+    res = phase_train("train-ssm", cfg, params, SSM_BATCH, SSM_SEQ, SSM_MICROBATCHES, expect)
+    print(f"[train-ssm] ssd_scan launches: {per_step} a step (3 x {cfg.num_layers} layers x "
+          f"{SSM_MICROBATCHES} microbatches), {res['launches']['ssd_scan']} over "
+          f"{TRAIN_STEPS} steps", flush=True)
+    del res["params"], params
+    res["grad_errs"] = errs
+    res["per_step"] = per_step
+    return res
+
+
 ENCDEC_BATCH, FRONT_PROMPT, FRONT_TOKENS = 2, 16, 8
 # logits of a decode step against the teacher-forced sequence's at its
 # position, fp32: max |step - full| / max |full|
@@ -3218,7 +3481,9 @@ def main():
     granite = phase_granite()
     gcfg, gparams = granite.pop("cfg"), granite.pop("params")
     dispatch = phase_dispatch(gcfg, gparams)
-    del gcfg, gparams
+    train = phase_train_granite(gcfg, gparams)
+    del gcfg, gparams, train["params"]
+    train_ssm = phase_train_ssm()
     encdec = phase_encdec()
     vlm = phase_vlm()
     gc.collect()
@@ -3248,6 +3513,12 @@ def main():
           f"{granite['tpot_ms']:.3f} ms; encdec (B={ENCDEC_BATCH}) {encdec['tpot_ms']:.3f} ms, "
           f"vlm ({vlm['layers']} layers) {vlm['tpot_ms']:.3f} ms; prefill encdec "
           f"{encdec['prefill_ms']:.3f} ms, vlm {vlm['prefill_ms']:.3f} ms")
+    print("[train] training steps (scatter, remat, AdamW fp32 moments): " + ", ".join(
+        f"{n} step {r['step_ms']:.1f} ms (median of steps 2-{TRAIN_STEPS}), peak "
+        f"{r['peak_gb']:.2f} GB, held loss {r['held'][0]:.4f} -> {r['held'][1]:.4f}, "
+        f"checkpoint {r['ckpt_gb']:.2f} GB saved {r['save_s']:.1f} s / loaded {r['load_s']:.1f} s"
+        for n, r in (("granite-moe-3b-a800m", train), ("mamba2-2.7b", train_ssm)))
+        + f"; ssd_scan launches {train_ssm['per_step']} a mamba2 step")
     kernels = [{
         "name": "moe_ffn", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_ffn.cu",
@@ -3320,6 +3591,9 @@ def main():
                  f"{jamba_serve['launches']['ssd_scan']}",
         "jamba_long_launches": jamba_long["launches"]["ssd_scan"],
         "nc12": srows[(1, JAMBA_LONG_CHUNKS)],
+        "train_launches": train_ssm["launches"]["ssd_scan"],
+        "train_launches_per_step": train_ssm["per_step"],
+        "train_grad_errors": train_ssm["grad_errs"],
     }, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/int8_matmul.cu",

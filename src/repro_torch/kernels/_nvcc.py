@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -98,3 +100,16 @@ def check_tensor(name: str, t, shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``kernel``: the
+    port's hand-written kernels have no backward (nor has any Pallas
+    kernel of the reference), and a launch's outputs would carry no
+    ``grad_fn``, so a training step would lose its gradient silently."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{kernel} has no backward on the card (ROADMAP.md queue 2: kernel "
+            f"backwards); differentiate the plain PyTorch paths, e.g. loss_fn with "
+            f"moe_method='scatter' as the reference's training step does, or run "
+            f"under torch.no_grad()")

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
+from repro_torch.kernels._nvcc import CudaLibrary, check_tensor, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,6 +67,7 @@ def flash_decode_kernel(q, k, v, kpos, pos, *, window: int = 0):
     is always valid).  Anything else raises."""
     if q.device.type != "cuda":
         raise ValueError("flash_decode_kernel launches on a CUDA device only")
+    refuse_grad("flash_decode_kernel", q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be (B,K,G,Hd) and k (B,W,K,Hd), got shapes "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
+from repro_torch.kernels._nvcc import CudaLibrary, check_tensor, refuse_grad
 
 
 def _bind(lib) -> None:
@@ -47,6 +47,7 @@ def int8_matmul_kernel(x, w_q, scale):
     and the scale applied after the whole sum.  Anything else raises."""
     if x.device.type != "cuda":
         raise ValueError("int8_matmul_kernel launches on a CUDA device only")
+    refuse_grad("int8_matmul_kernel", x, scale)
     if x.dim() != 2 or w_q.dim() != 2:
         raise ValueError(f"x must be (M,K) and w_q (K,N), got {tuple(x.shape)} and "
                          f"{tuple(w_q.shape)}")

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
+from repro_torch.kernels._nvcc import CudaLibrary, check_tensor, refuse_grad
 
 _WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -81,6 +81,7 @@ def moe_ffn_kernel(xd, w_gate, w_up, w_down):
     all fp32, contiguous, on ``xd``'s device.  Anything else raises."""
     if xd.device.type != "cuda":
         raise ValueError("moe_ffn_kernel launches on a CUDA device only")
+    refuse_grad("moe_ffn_kernel", xd, w_gate, w_up, w_down)
     if xd.dim() != 3:
         raise ValueError(f"xd must be (E, C, D), got shape {tuple(xd.shape)}")
     e, c, d = xd.shape

@@ -24,7 +24,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
+from repro_torch.kernels._nvcc import CudaLibrary, check_tensor, refuse_grad
 
 from .kernel import _counters, _size
 from .ref import moe_ffn_ref
@@ -99,6 +99,7 @@ def moe_ffn_packed_kernel(xd, parts, *, scheme: str):
                          f"absmax block; got f={f}, d={d}")
     if xd.device.type != "cuda":
         raise ValueError("moe_ffn_packed_kernel launches on a CUDA device only")
+    refuse_grad("moe_ffn_packed_kernel", xd, *(t for ps in parts.values() for t in ps))
     if min(e, c, d, f) <= 0:
         raise ValueError("moe_ffn_packed_kernel needs non-empty E, C, D and F")
     check_tensor("xd", xd, (e, c, d), torch.float32, xd.device)

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary, check_tensor
+from repro_torch.kernels._nvcc import CudaLibrary, check_tensor, refuse_grad
 
 _GRID_YZ_MAX = 65535            # H and B ride on the grid's y and z axes
 
@@ -34,6 +34,7 @@ def ssd_scan_kernel(s, decay, h0=None):
     aligned.  Anything else raises."""
     if s.device.type != "cuda":
         raise ValueError("ssd_scan_kernel launches on a CUDA device only")
+    refuse_grad("ssd_scan_kernel", s, decay, h0)
     if s.dim() != 5:
         raise ValueError(f"s must be (B,NC,H,P,N), got shape {tuple(s.shape)}")
     b, nc, h, p, n = s.shape

@@ -66,22 +66,26 @@ def _params_device(params) -> torch.device:
 
 
 # -------------------------------------------------------------------- train
-def loss_fn(cfg: ModelConfig, params, batch, moe_method="scatter"):
+def loss_fn(cfg: ModelConfig, params, batch, moe_method="scatter", remat: bool = False):
     """Next-token cross-entropy plus ``router_aux_weight`` times the MoE
     load-balance loss.  ``batch``: ``{"tokens": (B,T) int, "loss_mask":
     (B,T) optional, "frontend_embeds": (B,N,fd) for VLM and audio}``; a
     VLM's logits over its N modality positions are left out.  Returns
-    ``(loss, {"ce", "load_balance_loss", "loss"})``.  Not under
-    ``no_grad``: a training step differentiates it (only the plain
-    PyTorch paths have a backward; the card's kernels have none)."""
+    ``(loss, {"ce", "load_balance_loss", "loss"})``.  ``remat``
+    rematerialises every block in backward.  Not under ``no_grad``: a
+    training step differentiates it.  On the card the SSD scan kernel has
+    a backward (the same scan in reverse); the expert-FFN kernel has none,
+    so ``grouped`` raises under grad there, and training runs ``scatter``
+    as the reference's does."""
     dev = _params_device(params)
     tokens = batch["tokens"].to(dev)
     if cfg.is_encoder_decoder:
-        logits, aux = encdec_lib.encdec_seq(cfg, params, batch["frontend_embeds"], tokens)
+        logits, aux = encdec_lib.encdec_seq(cfg, params, batch["frontend_embeds"], tokens,
+                                            remat=remat)
     else:
         logits, aux, _ = tf_lib.lm_seq(cfg, params, tokens,
                                        frontend_embeds=batch.get("frontend_embeds"),
-                                       moe_method=moe_method)
+                                       moe_method=moe_method, remat=remat)
         logits = logits[:, aux["n_front"]:]
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)

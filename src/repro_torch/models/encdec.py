@@ -20,7 +20,7 @@ from .blocks import block_decode, block_seq, init_block, init_block_cache
 from .config import ATTN, DENSE_FF, ModelConfig
 from .layers import apply_norm, dense_init, embed
 from .transformer import (decode_logits, frontend_proj, logits_from_hidden, project_frontend,
-                          stack_made, tree_map, tree_stack)
+                          run_block, stack_made, tree_map, tree_stack, tree_unstack)
 
 ENC_KINDS = (ATTN, DENSE_FF)
 
@@ -67,8 +67,7 @@ def encode(cfg: ModelConfig, params, frame_embeds):
     x = project_frontend(params, frame_embeds.to(scale.device)).to(scale.dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    for r in range(cfg.num_encoder_layers):
-        lp = tree_map(lambda a: a[r], params["encoder"])
+    for lp in tree_unstack(params["encoder"], cfg.num_encoder_layers):
         x, _, _ = block_seq(cfg, lp, ENC_KINDS, x, positions, causal=False)
     return apply_norm(cfg, x, params["enc_norm"])
 
@@ -77,36 +76,40 @@ def build_memories(cfg: ModelConfig, params, enc_out) -> tuple:
     """Per-decoder-layer cross K/V, a tuple per pattern position of
     ``{"k", "v": (R, B, S, K, hd)}`` stacked over repeats."""
     pattern, reps = cfg.pattern()
-    return tuple(tree_stack([attn_lib.cross_attn_memory(
-        cfg, tree_map(lambda a: a[r], params["layers"][i]["cross"]), enc_out)
-        for r in range(reps)]) for i in range(len(pattern)))
+    return tuple(tree_stack([attn_lib.cross_attn_memory(cfg, cross, enc_out)
+                             for cross in tree_unstack(params["layers"][i]["cross"], reps)])
+                 for i in range(len(pattern)))
 
 
 # ----------------------------------------------------------------- decoder
 def decoder_seq(cfg: ModelConfig, params, tokens, memories, *, make_cache: bool = False,
-                max_cache_len: int = 0):
+                max_cache_len: int = 0, remat: bool = False):
     """The decoder over ``tokens`` (B, T), causal, each block attending its
-    layer's memory.  Returns (logits (B, T, V), caches or None)."""
+    layer's memory; ``remat`` rematerialises each block in backward.
+    Returns (logits (B, T, V), caches or None)."""
     pattern, reps = cfg.pattern()
     x = embed(tokens, params["embed"])
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    layers = [tree_unstack(stacked, reps) for stacked in params["layers"]]
+    mems = [tree_unstack(stacked, reps) for stacked in memories]
     caches = [[] for _ in pattern]
     for r in range(reps):
         for i, kinds in enumerate(pattern):
-            lp = tree_map(lambda a: a[r], params["layers"][i])
-            mem = tree_map(lambda a: a[r], memories[i])
-            x, _, cache = block_seq(cfg, lp, kinds, x, positions, causal=True, memory=mem,
-                                    make_cache=make_cache, max_cache_len=max_cache_len)
+            x, _, cache = run_block(remat, cfg, layers[i][r], kinds, x, positions, causal=True,
+                                    memory=mems[i][r], make_cache=make_cache,
+                                    max_cache_len=max_cache_len)
             caches[i].append(cache)
     logits = logits_from_hidden(cfg, params, x)
     return logits, (tuple(tree_stack(c) for c in caches) if make_cache else None)
 
 
-def encdec_seq(cfg: ModelConfig, params, frame_embeds, tokens):
-    """Teacher-forced full forward.  Returns (logits, aux)."""
+def encdec_seq(cfg: ModelConfig, params, frame_embeds, tokens, remat: bool = False):
+    """Teacher-forced full forward.  Returns (logits, aux).  ``remat``
+    rematerialises the decoder's blocks, as the reference checkpoints its
+    decoder scan (its ``encdec_seq`` runs the encoder without remat)."""
     memories = build_memories(cfg, params, encode(cfg, params, frame_embeds))
-    logits, _ = decoder_seq(cfg, params, tokens, memories)
+    logits, _ = decoder_seq(cfg, params, tokens, memories, remat=remat)
     return logits, {"load_balance_loss": 0.0}
 
 

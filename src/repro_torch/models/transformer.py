@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.rows import row_blocks
 
@@ -69,6 +70,31 @@ def tree_concat(trees, dim: int = 0):
         return type(first)(tree_concat([t[i] for t in trees], dim)
                             for i in range(len(first)))
     return torch.cat(trees, dim=dim)
+
+
+def tree_unstack(tree, reps: int) -> list:
+    """The ``reps`` per-repeat trees of a stacked tree, from one ``unbind``
+    of each leaf: views equal to ``a[r]``, whose gradients autograd stacks
+    once into the leaf's, where ``a[r]`` per repeat would sum ``reps``
+    zero-filled leaf-sized buffers."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unstack(v, reps) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(reps)]
+    if isinstance(tree, (tuple, list)):
+        parts = [tree_unstack(v, reps) for v in tree]
+        return [type(tree)(p[r] for p in parts) for r in range(reps)]
+    return list(tree.unbind(0))
+
+
+def run_block(remat: bool, *args, **kw):
+    """``block_seq(*args, **kw)``, under per-block activation
+    rematerialisation when ``remat`` (``torch.utils.checkpoint``, the
+    counterpart of the reference's checkpointed scan body): backward
+    recomputes the block from its input instead of keeping its
+    activations."""
+    if remat:
+        return checkpoint(block_seq, *args, use_reentrant=False, **kw)
+    return block_seq(*args, **kw)
 
 
 def tree_leaves(tree):
@@ -148,24 +174,27 @@ def input_embeddings(cfg: ModelConfig, params, tokens, frontend_embeds=None):
 
 # ---------------------------------------------------------------- sequence
 def lm_seq(cfg: ModelConfig, params, tokens, *, frontend_embeds=None,
-           make_cache: bool = False, max_cache_len: int = 0, moe_method="scatter"):
+           make_cache: bool = False, max_cache_len: int = 0, moe_method="scatter",
+           remat: bool = False):
     """Full-sequence forward.  Returns (logits (B,N+T,V), aux, caches):
     ``aux`` holds the summed ``load_balance_loss``, ``topk`` (a tuple per
     MoE pattern position of (R, B, N+T, k) routing decisions) and
     ``n_front``, the N modality positions prepended; caches is a tuple per
     pattern position of KV dicts stacked over repeats (or None without
-    ``make_cache``)."""
+    ``make_cache``).  ``remat`` rematerialises each block in backward
+    (training)."""
     pattern, reps = cfg.pattern()
     x, n_front = input_embeddings(cfg, params, tokens, frontend_embeds)
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+    layers = [tree_unstack(stacked, reps) for stacked in params["layers"]]
     caches = [[] for _ in pattern]
     auxs = [[] for _ in pattern]
     for r in range(reps):
         for i, kinds in enumerate(pattern):
-            lp = tree_map(lambda a: a[r], params["layers"][i])
-            x, aux, cache = block_seq(cfg, lp, kinds, x, positions, moe_method=moe_method,
-                                      make_cache=make_cache, max_cache_len=max_cache_len)
+            x, aux, cache = run_block(remat, cfg, layers[i][r], kinds, x, positions,
+                                      moe_method=moe_method, make_cache=make_cache,
+                                      max_cache_len=max_cache_len)
             auxs[i].append(aux)
             caches[i].append(cache)
     logits = logits_from_hidden(cfg, params, x)

@@ -1362,3 +1362,140 @@ def test_moe_dispatches_on_the_card_equal_the_host(dev, method):
     loss_d, _ = loss_fn(cfg, tree_map(lambda t: t.to(dev), params), {"tokens": toks.to(dev)},
                         moe_method=method)
     assert abs(float(loss_d) - float(loss)) <= 1e-4 * abs(float(loss))
+
+
+# ------------------------------------------------------------------ training
+@pytest.mark.parametrize("shape", [(1, 4, 80, 64, 128), (2, 5, 3, 5, 12)],
+                         ids=["mamba2-layer", "ragged-tail"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_gradient_through_the_kernel_matches_plain_version(dev, shape, with_h0):
+    """The scan's ``autograd.Function`` on the card (kernel forward, kernel
+    reverse scan: 2 launches) against autograd through ``ssd_scan_ref`` on
+    the same inputs and upstream gradients: ``ds`` and ``dh0`` bitwise,
+    ``d(decay)`` within 1e-5 of its largest (a reduction in another
+    order)."""
+    s, decay, h0 = _ssd(dev, *shape, with_h0, seed=4)
+    g = torch.Generator(device=dev).manual_seed(5)
+    g_in = torch.randn(s.shape, generator=g, device=dev)
+    g_last = torch.randn(s[:, 0].shape, generator=g, device=dev)
+    grads = []
+    for fn in (ssd_scan, ssd_scan_ref):
+        ins = [None if t is None else t.clone().requires_grad_(True) for t in (s, decay, h0)]
+        before = ssd_scan_kernel.launches
+        outs = fn(*ins)
+        grads.append(torch.autograd.grad(outs, [t for t in ins if t is not None],
+                                         grad_outputs=(g_in, g_last)))
+        if fn is ssd_scan:
+            assert ssd_scan_kernel.launches == before + 2
+    (ds, dd, *dh0), (rs, rd, *rh0) = grads
+    assert torch.equal(ds, rs)
+    assert all(torch.equal(a, b) for a, b in zip(dh0, rh0))
+    assert float((dd - rd).abs().max()) <= 1e-5 * float(rd.abs().max())
+
+
+def test_kernels_refuse_to_run_under_grad(dev):
+    """A kernel has no backward: each refuses (ValueError, nothing launched)
+    an input that requires grad while grad is enabled, and runs it under
+    ``no_grad``; ``loss_fn`` under ``grouped`` on parameters that require
+    grad refuses too, and ``scatter`` differentiates on the card."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    x, wg, wu, wd = _inputs(dev, 2, 3, 64, 128, torch.float32)
+    q, k, v, kpos, pos = _flash(dev, 2, 40, 2, 4, 64, torch.float32)
+    xi, w_q, scale = _int8(dev, 4, 70, 33, torch.float32)
+    s, decay, _ = _ssd(dev, 1, 3, 4, 8, 8, False)
+    parts = _packed(dev, "int8", 2, 64, 128)
+    slot = torch.zeros((3, 1), dtype=torch.int64, device=dev)
+    gates = torch.ones((3, 1), device=dev)
+    # (the input that may require grad, the call on it)
+    calls = {
+        "moe_ffn": (x, lambda t: moe_ffn(t, wg, wu, wd)),
+        "grouped_topk_contrib": (x[0], lambda t: grouped_topk_contrib(t, wg, wu, wd, slot,
+                                                                       gates)),
+        "moe_ffn_packed": (x, lambda t: moe_ffn_packed(t, parts, scheme="int8")),
+        "flash_decode": (q, lambda t: flash_decode(t, k, v, kpos, pos)),
+        "int8_matmul": (xi, lambda t: int8_matmul(t, w_q, scale)),
+        "ssd_scan_kernel": (s, lambda t: ssd_scan_kernel(t, decay)),
+    }
+    kernels = (moe_ffn_kernel, moe_ffn_packed_kernel, flash_decode_kernel, int8_matmul_kernel,
+               ssd_scan_kernel)
+    for name, (t, call) in calls.items():
+        needs_grad = t.detach().clone().requires_grad_(True)
+        before = [kern.launches for kern in kernels]
+        with pytest.raises(ValueError, match="no backward"):
+            call(needs_grad)
+        assert [kern.launches for kern in kernels] == before, name
+        with torch.no_grad():
+            call(needs_grad)
+        call(t)
+    cfg = ModelConfig(name="t-moe", family="moe", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=0, d_expert=96, vocab_size=97, num_experts=8, top_k=2)
+    params = tree_map(lambda p: p.requires_grad_(True), init_params(cfg, seed=2, device=dev))
+    toks = {"tokens": torch.randint(0, 97, (2, 12), device=dev)}
+    before = moe_ffn_kernel.launches
+    with pytest.raises(ValueError, match="no backward"):
+        loss_fn(cfg, params, toks, moe_method="grouped")
+    assert moe_ffn_kernel.launches == before
+    loss, _ = loss_fn(cfg, params, toks, moe_method="scatter")
+    loss.backward()
+    assert all(p.grad is not None for p in tree_leaves(params))
+
+
+def test_adamw_step_on_the_card_equals_the_host(dev):
+    """One AdamW update of fp32 and bf16 leaves (a stacked expert leaf
+    updated in chunks of its leading axis) on the card against the same
+    update on the host: within 1e-6 (fp32 elementwise arithmetic; the
+    global norm sums in another order)."""
+    from repro_torch.optim import AdamWConfig, adamw_update
+    g = torch.Generator().manual_seed(6)
+    shapes = {"w": (3, 48, 40), "norm": (3, 40), "b": (40,), "e": (2, 4, 40, 24)}
+    params = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    params["e"] = params["e"].to(torch.bfloat16)
+    grads = {k: torch.randn(s, generator=g) * 0.3 for k, s in shapes.items()}
+    grads["e"] = grads["e"].to(torch.bfloat16)
+    mu = {k: torch.randn(s, generator=g) * 0.01 for k, s in shapes.items()}
+    nu = {k: torch.rand(s, generator=g) * 0.01 for k, s in shapes.items()}
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=3, total_steps=50)
+    out = []
+    for d in ("cpu", dev):
+        on = lambda t: {k: v.clone().to(d) for k, v in t.items()}
+        state = {"mu": on(mu), "nu": on(nu), "step": torch.tensor(4, dtype=torch.int32,
+                                                                   device=d)}
+        out.append(adamw_update(on(params), on(grads), state, cfg))
+    (hp, hs, hm), (cp, cs, cm) = out
+    for k in shapes:
+        for a, b in ((cp[k], hp[k]), (cs["mu"][k], hs["mu"][k]), (cs["nu"][k], hs["nu"][k])):
+            assert a.dtype == b.dtype
+            torch.testing.assert_close(a.cpu().float(), b.float(), rtol=1e-6, atol=1e-6)
+    for k in ("grad_norm", "lr"):
+        assert abs(float(cm[k]) - float(hm[k])) <= 1e-6 * abs(float(hm[k]))
+    assert int(cs["step"]) == 5
+
+
+def test_train_step_on_the_card_equals_the_host(dev):
+    """One ``make_train_step`` (scatter, remat, 2 microbatches) of the
+    fp32 hybrid on the card, its Mamba gradient through the kernel's
+    reverse scan, against the same step on the host: loss and grad norm
+    within 1e-5, every leaf of the first ``mu`` within 3e-5 of its largest
+    (the hybrid's gradient is not resolved more finely in fp32; see
+    ``tests/test_torch_train.py``); the kernel launched 3 times per Mamba
+    layer per microbatch."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    host = init_params(HYBRID, seed=11, device="cpu")
+    toks = torch.randint(0, 97, (4, 12), generator=torch.Generator().manual_seed(12))
+    step = make_train_step(HYBRID, AdamWConfig(lr=1e-3, warmup_steps=0), n_microbatches=2)
+    mamba_layers = sum(m == "mamba" for m, _ in HYBRID.layer_kinds())
+    out = []
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.clone().to(d), host)
+        before = ssd_scan_kernel.launches
+        out.append(step(p, init_opt_state(p), {"tokens": toks.to(d)}))
+        launched = ssd_scan_kernel.launches - before
+        assert launched == (0 if d == "cpu" else 3 * mamba_layers * 2)
+    (_, hs, hm), (_, cs, cm) = out
+    for k in ("loss", "grad_norm"):
+        assert abs(float(cm[k]) - float(hm[k])) <= 1e-5 * abs(float(hm[k])), k
+    for a, b in zip(tree_leaves(cs["mu"]), tree_leaves(hs["mu"])):
+        assert float((a.cpu() - b).abs().max()) <= 3e-5 * float(b.abs().max()) + 1e-30
